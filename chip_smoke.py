@@ -9,24 +9,42 @@ only, never jax or karpenter_tpu, and prints one line per phase:
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name;
 2. build   — nvcc builds every kernel of karpenter_tpu_torch/csrc;
-3. k1      — the quotient kernel against its plain PyTorch version on the
-             card, bit for bit (tolerance 0: int32 in, int32 out), at
-             N in {8, 128, 512, 2048} x T = 603 x R in {4, 11}, on inputs
-             with negative availability, zero demand, exact-boundary
-             divisions and values from 2**24 up to INT_BIG; its time, the
-             plain version's and the byte bound;
-4. path A  — the north-star solve: the real 603-type catalog, 10k pending
+3. k1      — the standalone quotient kernel (csrc/quotient.cu) against its
+             plain PyTorch version on the card, bit for bit (tolerance 0:
+             int32 in, int32 out), at N in {8, 128, 512, 2048} x T = 603 x
+             R in {4, 11}, on inputs with negative availability, zero
+             demand, exact-boundary divisions and values from 2**24 up to
+             INT_BIG; its time, the plain version's and the byte bound;
+4. open_claim — the pack step's open-claim fill (csrc/open_claim.cu, two
+             launches, in both of its row-max variants) against its plain
+             version open_claim_fill_reference, bit for bit (tolerance 0),
+             at N in {32, 128, 512, 1000, 2048} x T = 603 x S = 6 x
+             R in {4, 11}, Pv in {1, 3}, with and without the kubelet pods
+             cap, on adversarial states (inactive rows with stale masks,
+             rows with no feasible option, exact-boundary and one-below
+             divisions, values from 2**24 up to INT_BIG, rem = 0 and rem
+             above the total fill), plus S in {3, 4, 8} for the other word
+             widths;
+5. path A  — the north-star solve: the real 603-type catalog, 10k pending
              pods in the 8-deployment headline mix, one spot+on-demand
              provisioner; one warm-up solve, then 5 timed solves;
-5. path B  — 5k mixed pods with hostname anti-affinity and zone spread over
+6. path B  — 5k mixed pods with hostname anti-affinity and zone spread over
              3 zones, plus 64 partly used existing nodes of catalog types;
-6. parity  — decisions equal the scalar oracle on the 100-pod inflate case
+7. profile — one solve of each path under torch.profiler: kernels per
+             solve, device busy time and idle share;
+8. timing  — K1 and the open-claim fill at path A's and path B's shapes:
+             each launch's device ms, their sum, the byte bound, the plain
+             version and the sequence the fill replaced (K1 plus the step-2
+             tensor code), all as medians of CUDA-graph replays; and the
+             host time per call (enqueue) of the fill and of that sequence;
+9. parity  — decisions equal the scalar oracle on the 100-pod inflate case
              over 20 catalog types.
 
 Paths A and B check that every node's used vector fits its decided type,
-that packed plus unschedulable equals the input pods, that the K1 launch
-count rose by at least the solve's pack steps, and that the flat result
-buffer equals the same solve run with device="cpu", bit for bit.
+that packed plus unschedulable equals the input pods, that the open-claim
+kernel's launch count rose by at least twice the solve's pack steps while
+the standalone K1 was not launched, and that the flat result buffer equals
+the same solve run with device="cpu", bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -47,6 +65,11 @@ INT_BIG = 2**30
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 K1_SHAPES = [(n, 603, r) for r in (4, 11) for n in (8, 128, 512, 2048)]
+# (N, T, S, R, Pv, pods cap?) of the open-claim sweep
+OPEN_CLAIM_SHAPES = (
+    [(n, 603, 6, r, pv, cap) for n in (32, 128, 512, 1000, 2048)
+     for r in (4, 11) for pv in (1, 3) for cap in (False, True)]
+    + [(128, 603, s, 4, 3, True) for s in (3, 4, 8)])
 TIMED_SOLVES = 5
 
 # (name, share out of 10_000, cpu, memory, zone-pin, zone-spread?): the
@@ -220,6 +243,25 @@ def device_ms(fn, reps=25, inner=20, warm=5):
     return statistics.median(times)
 
 
+def host_us(fn, calls=200, reps=5):
+    """Host time of one call of `fn` (its enqueue, not its device time):
+    the median over `reps` runs of `calls` back-to-back calls on the
+    host clock, each run ended by a synchronize outside the timed span."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def k1_bound_ms(N, T, R):
     nbytes = (N * T + (T + N) * R + R) * 4
     ops = N * T * R
@@ -302,6 +344,182 @@ def run_k1(torch, quotient):
     return rows, worst
 
 
+def open_claim_case(torch, N, T, S, R, Pv, pods_cap, seed, rem):
+    """open_claim_fill's arguments on the card for one adversarial state
+    made from `seed`: a fifth of the rows inactive with stale masks, an
+    active row with no feasible option, rows landing exactly on and one
+    below a multiple of the demand, a row with negative availability, a
+    row whose alloc - used wraps in int32, capacities and usage from 1 up
+    to INT_BIG, and pods column 0 (the compressed layout's)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import quotient
+
+    rng = np.random.default_rng(seed)
+    alloc, used, vec = k1_inputs(N, T, R, seed)
+    used = used.astype(np.int64)
+    small = rng.random(N) < 0.7          # most rows leave room to fill
+    used[small] = used[small] % (1 + alloc.min(axis=0) // 4)
+    vec[0] = 1
+    active = rng.random(N) < 0.8
+    optmask = rng.random((N, T, S)) < 0.5
+    if N > 5:
+        active[1:5] = True
+        optmask[1] = False               # no feasible option
+        optmask[2:4, 2] = True           # k1_inputs' boundary rows, type 2
+        used[4] = alloc.max(axis=0).astype(np.int64) + 1
+    used = np.clip(used, 0, INT_BIG)
+    if N > 6:
+        used[5] = -2**31 + rng.integers(0, 2**10, size=R)  # alloc - used wraps
+    nprov = np.where(active | (rng.random(N) < 0.5),
+                     rng.integers(0, Pv, size=N), -1)
+    case = {
+        "alloc_t": quotient.type_major(torch.from_numpy(alloc)),
+        "vec": torch.from_numpy(vec),
+        "cap": torch.tensor(INT_BIG if seed % 2 else 97, dtype=torch.int32),
+        "feas": torch.from_numpy(rng.random((Pv, T, S)) < 0.6),
+        "og": torch.tensor([1], dtype=torch.int64),
+        "claim_placed": torch.from_numpy(
+            rng.integers(0, 4, size=(3, N)).astype(np.int32)),
+        "prov_pods_cap": (torch.from_numpy(
+            rng.integers(0, 250, size=(Pv, T)).astype(np.int32))
+            if pods_cap else None),
+        "pods_i": 0,
+        "used": torch.from_numpy(used.astype(np.int32)),
+        "optmask": torch.from_numpy(optmask),
+        "nprov": torch.from_numpy(nprov.astype(np.int32)),
+        "active": torch.from_numpy(active),
+        "rem": torch.tensor(rem, dtype=torch.int32),
+    }
+    dev = torch.device("cuda")
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in case.items()}
+
+
+def run_open_claim_kernel(torch, oc, case, cluster):
+    """Both launches on copies of the case's state, with a fresh workspace
+    that must come back zeroed: -> (m, optmask, used, rem)."""
+    used, optmask = case["used"].clone(), case["optmask"].clone()
+    N = used.shape[0]
+    ws = oc.open_claim_workspace(N, used.device)
+    m = torch.empty((N,), dtype=torch.int32, device=used.device)
+    rem_out = torch.empty((), dtype=torch.int32, device=used.device)
+    args = oc.cuda_args(**dict(case, used=used, optmask=optmask),
+                        workspace=ws, m=m, rem_out=rem_out)
+    oc.launch_qmax(args, cluster=cluster)
+    oc.launch_apply(args)
+    torch.cuda.synchronize()
+    check(not bool(ws.any()), "open_claim_fill left its workspace dirty")
+    return m, optmask, used, rem_out
+
+
+def run_open_claim(torch, oc):
+    """The bit-for-bit sweep of the open-claim fill, both row-max
+    variants, against the plain version. -> max |diff| (0)."""
+    worst = 0
+    cases = 0
+    left_over = 0   # rem = INT_BIG cases whose fill left pods unplaced
+    for i, (N, T, S, R, Pv, pods_cap) in enumerate(OPEN_CLAIM_SHAPES):
+        for j, rem in enumerate((0, 37, INT_BIG)):
+            case = open_claim_case(torch, N, T, S, R, Pv, pods_cap,
+                                   seed=300 + 3 * i + j, rem=rem)
+            want = oc.open_claim_fill_reference(**case)
+            for cluster in (0, 1):
+                got = run_open_claim_kernel(torch, oc, case, cluster)
+                for name, g, w in zip(("m", "optmask", "used", "rem"), got,
+                                      want):
+                    err = int((g.long() - w.long()).abs().max())
+                    worst = max(worst, err)
+                    check(torch.equal(g, w),
+                          f"open_claim_fill (cluster={cluster}) differs from "
+                          f"its plain version in {name} at N={N} T={T} S={S} "
+                          f"R={R} Pv={Pv} pods_cap={pods_cap} rem={rem}: "
+                          f"max |diff| {err}")
+                cases += 1
+            placed = int((want[0] > 0).sum())
+            if rem == 0:
+                check(placed == 0, "rem = 0 must place nothing")
+            elif rem == INT_BIG:
+                check(placed > 0, "rem = INT_BIG must place pods")
+                left_over += int(want[3]) > 0
+    torch.cuda.synchronize()
+    check(left_over > 0, "no case had rem above the total fill")
+    phase("open_claim", cases=cases, shapes=len(OPEN_CLAIM_SHAPES),
+          rem_above_fill_cases=left_over, exact=True, max_abs_err=worst)
+    return worst
+
+
+def open_claim_bound_ms(case, m):
+    """Bytes of the fill read once and written once (placed rows only),
+    over the memory rate, and the divisions over the CUDA-core rate."""
+    N, R = case["used"].shape
+    _, T, S = case["optmask"].shape
+    Pv = case["feas"].shape[0]
+    placed = int((m > 0).sum())
+    demanded = int((case["vec"] > 0).sum())
+    nbytes = (T * R * 4 + R * 4 + 4 + Pv * T * S + 8 + N * 4
+              + N * 4 + N + 4 + N * R * 4 + N * T * S          # read
+              + N * 4 + 4 + placed * (R * 4 + T * S))          # written
+    if case["prov_pods_cap"] is not None:
+        nbytes += Pv * T * 4
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = N * T * demanded / CUDA_CORE_OPS_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations")
+
+
+def time_open_claim(torch, oc, quotient, label, N, R):
+    """The open-claim fill at a path's shape (T = 603, S = 6, Pv = 1, no
+    pods cap, as on paths A and B): each launch's device time, their sum,
+    the other row-max variant's launch 1, the bound, the plain version,
+    the sequence the fill replaced (K1 plus the step-2 tensor code), and
+    the host time per call of the wrapper and of that sequence. Launch 1
+    is timed on a state that its own used updates move from call to call,
+    which leaves its work (the same feasible (n, t) pairs, the same
+    divisions) as it is; launch 2 is timed on that state with launch 1's
+    m, which it reaches again on every call."""
+    case = open_claim_case(torch, N, 603, 6, R, 1, False, seed=N + R,
+                           rem=37 * N)
+    want = oc.open_claim_fill_reference(**case)
+    used, optmask = case["used"].clone(), case["optmask"].clone()
+    ws = oc.open_claim_workspace(N, used.device)
+    m = torch.empty((N,), dtype=torch.int32, device=used.device)
+    rem_out = torch.empty((), dtype=torch.int32, device=used.device)
+    state = dict(case, used=used, optmask=optmask)
+
+    def args():
+        return oc.cuda_args(**state, workspace=ws, m=m, rem_out=rem_out)
+
+    oc.launch_qmax(args())
+    oc.launch_apply(args())
+    torch.cuda.synchronize()
+    check(torch.equal(m, want[0]) and torch.equal(optmask, want[1])
+          and torch.equal(used, want[2]) and torch.equal(rem_out, want[3]),
+          f"open_claim_fill differs from its plain version at {label}")
+    placed_m = m.clone()
+    l2 = device_ms(lambda: oc.launch_apply(args()))
+    l1 = device_ms(lambda: oc.launch_qmax(args(), cluster=0))
+    l1_cluster = device_ms(lambda: oc.launch_qmax(args(), cluster=1))
+    plain = device_ms(lambda: oc.open_claim_fill_reference(**case))
+    k1_seq = device_ms(lambda: oc.open_claim_fill_reference(
+        **case, quotient=quotient.quotient_nt))
+    host = host_us(lambda: oc.open_claim_fill(**state, workspace=ws))
+    k1_seq_host = host_us(lambda: oc.open_claim_fill_reference(
+        **case, quotient=quotient.quotient_nt))
+    bound, by = open_claim_bound_ms(case, placed_m)
+    l1_main = l1_cluster if oc.CLUSTER else l1
+    row = {"N": N, "T": 603, "S": 6, "R": R, "Pv": 1,
+           "placed_rows": int((placed_m > 0).sum()),
+           "launch1_ms": l1_main, "launch2_ms": l2, "ms": l1_main + l2,
+           "launch1_atomic_ms": l1, "launch1_cluster_ms": l1_cluster,
+           "plain_ms": plain, "k1_sequence_ms": k1_seq,
+           "host_us": host, "k1_sequence_host_us": k1_seq_host,
+           "bound_ms": bound, "bound_by": by}
+    phase(f"open_claim_{label}_shape",
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+             for k, v in row.items()})
+    return row
+
+
 def node_fit_errors(res, pods_total, existing=()):
     """Violations of the solve invariants (empty when all hold)."""
     from karpenter_tpu_torch.apis import wellknown as wk
@@ -337,7 +555,7 @@ def node_fit_errors(res, pods_total, existing=()):
 
 
 def run_path(label, catalog, prov, pods, existing, LAUNCHES, TorchSolver,
-             KERNEL):
+             KERNEL, K1):
     import numpy as np
 
     solver = TorchSolver(catalog, [prov])        # device=None: the card
@@ -345,16 +563,18 @@ def run_path(label, catalog, prov, pods, existing, LAUNCHES, TorchSolver,
     infos = []
     res = None
     for i in range(1 + TIMED_SOLVES):
-        before = LAUNCHES.get(KERNEL)
+        before, k1_before = LAUNCHES.get(KERNEL), LAUNCHES.get(K1)
         t0 = time.perf_counter()
         res = solver.solve(list(pods), existing=copy_existing(existing))
         wall = (time.perf_counter() - t0) * 1000
         info = dict(solver.last_solve_info, wall_ms=wall)
         rose = LAUNCHES.get(KERNEL) - before
-        check(rose >= info["steps"] > 0,
-              f"{label}: K1 launches rose by {rose} over {info['steps']} "
-              f"pack steps")
-        info["k1_launches"] = rose
+        check(rose >= 2 * info["steps"] > 0,
+              f"{label}: open-claim launches rose by {rose} over "
+              f"{info['steps']} pack steps (two launches a step)")
+        check(LAUNCHES.get(K1) == k1_before,
+              f"{label}: the main path launched the standalone K1")
+        info["open_claim_launches"] = rose
         errs = node_fit_errors(res, len(pods), existing)
         check(not errs, f"{label}: " + "; ".join(errs[:5]))
         if i:
@@ -375,7 +595,8 @@ def run_path(label, catalog, prov, pods, existing, LAUNCHES, TorchSolver,
           pods=len(pods), existing=len(existing), nodes=len(res.nodes),
           unschedulable=res.unschedulable_count(),
           steps_per_solve=infos[-1]["steps"],
-          k1_launches_per_solve=infos[-1]["k1_launches"],
+          open_claim_launches_per_solve=infos[-1]["open_claim_launches"],
+          k1_launches_per_solve=0,
           flat_bit_equal_cpu=True,
           **{f"median_{k}": f"{v:.3f}" for k, v in med.items()})
     return infos[-1]
@@ -413,11 +634,14 @@ def profile_solve(torch, label, catalog, prov, pods, existing, TorchSolver):
         agg[0] += 1
         agg[1] += s1 - s0
     k1 = [v for k, v in by_name.items() if "quotient_nt_kernel" in k]
+    oc = [v for k, v in by_name.items()
+          if "open_claim_qmax_kernel" in k or "open_claim_apply_kernel" in k]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": 1 - busy / wall_us, "kernels": len(spans),
-           "k1_launches": sum(v[0] for v in k1),
-           "k1_ms": sum(v[1] for v in k1) / 1e3}
+           "open_claim_launches": sum(v[0] for v in oc),
+           "open_claim_ms": sum(v[1] for v in oc) / 1e3,
+           "k1_launches": sum(v[0] for v in k1)}
     phase(f"profile{label}", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                                 for k, v in out.items()})
     for name, (n, us) in top:
@@ -438,7 +662,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from karpenter_tpu_torch.device import LAUNCHES
-        from karpenter_tpu_torch.ops import _build, quotient
+        from karpenter_tpu_torch.ops import _build, open_claim, quotient
         from karpenter_tpu_torch.oracle.scheduler import Scheduler
         from karpenter_tpu_torch.providers.instancetypes import generate_fleet_catalog
         from karpenter_tpu_torch.solver.core import TorchSolver
@@ -467,6 +691,7 @@ def main() -> int:
                   spilling_instantiations=spills)
 
         k1_rows, k1_err = run_k1(torch, quotient)
+        oc_err = run_open_claim(torch, open_claim)
 
         catalog = generate_fleet_catalog()
         check(len(catalog.types) == 603, "fleet catalog must hold 603 types")
@@ -476,11 +701,15 @@ def main() -> int:
         ex_b = existing_nodes(catalog)
         LAUNCHES.reset()
         info_a = run_path("pathA", catalog, prov, pods_a, (), LAUNCHES,
-                          TorchSolver, quotient.KERNEL)
+                          TorchSolver, open_claim.KERNEL, quotient.KERNEL)
         info_b = run_path("pathB", catalog, prov, pods_b, ex_b, LAUNCHES,
-                          TorchSolver, quotient.KERNEL)
-        launches = LAUNCHES.get(quotient.KERNEL)
-        check(launches > 0, "K1 was never launched on the main path")
+                          TorchSolver, open_claim.KERNEL, quotient.KERNEL)
+        launches = {k: LAUNCHES.get(k)
+                    for k in (open_claim.KERNEL, quotient.KERNEL)}
+        check(launches[open_claim.KERNEL] > 0,
+              "the open-claim kernel was never launched on the main path")
+        check(launches[quotient.KERNEL] == 0,
+              "the main path launched the standalone K1")
         profile_solve(torch, "A", catalog, prov, pods_a, (), TorchSolver)
         profile_solve(torch, "B", catalog, prov, pods_b, ex_b, TorchSolver)
 
@@ -504,6 +733,9 @@ def main() -> int:
               library_note="no_single_pytorch_call_computes_this_min_of_"
                            "floored_quotients_with_its_zero_demand_and_"
                            "negative_availability_rules")
+        oc_rows = [time_open_claim(torch, open_claim, quotient, label,
+                                   info["slots"], info["res_width"])
+                   for label, info in (("pathA", info_a), ("pathB", info_b))]
 
         inflate_catalog = generate_fleet_catalog(max_types=20)
         from karpenter_tpu_torch.apis.provisioner import Provisioner
@@ -521,14 +753,32 @@ def main() -> int:
         phase("parity", case="inflate-100x20types", nodes=len(got),
               oracle_equal=True)
 
+        oc_a = oc_rows[0]
         record = {"kernels": [{
+            "name": "open_claim_fill",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/open_claim.cu",
+            "replaces": "karpenter_tpu/ops/pallas_kernels.py:101",
+            "launches": launches[open_claim.KERNEL],
+            "launches_path_a_per_solve": info_a["open_claim_launches"],
+            "launches_path_b_per_solve": info_b["open_claim_launches"],
+            "max_abs_err": oc_err,
+            "ms": oc_a["ms"],
+            "plain_ms": oc_a["plain_ms"],
+            "bound_ms": oc_a["bound_ms"],
+            "bound_by": oc_a["bound_by"],
+            "library_ms": None,
+            "k1_sequence_ms": oc_a["k1_sequence_ms"],
+            "cluster_variant": open_claim.CLUSTER,
+            "shapes": oc_rows,
+        }, {
             "name": "quotient_nt",
             "route": "cuda",
             "source": "karpenter_tpu_torch/csrc/quotient.cu",
             "replaces": "karpenter_tpu/ops/pallas_kernels.py:101",
-            "launches": launches,
-            "launches_path_a_per_solve": info_a["k1_launches"],
-            "launches_path_b_per_solve": info_b["k1_launches"],
+            "launches": launches[quotient.KERNEL],
+            "launches_path_a_per_solve": 0,
+            "launches_path_b_per_solve": 0,
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,

@@ -9,16 +9,18 @@ idiom changes:
   numpy group counts before the upload. Inside the loop nothing reads a
   device value back: n_open, n_new and the other scalars stay 0-d device
   tensors, so a solve pays one device sync, at the final read.
-* Each step's open-claim quotient q[n, t] is kernel K1
-  (ops/quotient.quotient_nt), launched on every step on a CUDA device. The
-  small [Ne] and [T] quotients of steps 1 and 3 stay tensor code, as they
-  are plain XLA in the JAX package.
+* Step 2, the open-claim fill, is ops/open_claim.open_claim_fill: on a
+  CUDA device two launches of a hand-written kernel (the redesign of K1,
+  whose [N, T] quotient never reaches device memory), on the CPU the plain
+  tensor code. Steps 1 and 3 stay tensor code: their [Ne] and [T]
+  quotients are small, and plain XLA in the JAX package.
 * Integer floor division is exact in torch, so the JAX package's
   XLA:CPU division workaround (_floor_div) has no counterpart here, and
   the quotient needs no value gate.
-* Carried state (claim_placed, ex_placed and the result rows) is updated in
-  place, which saves an allocation per step; every read of a row happens
-  before the row's update, as in the JAX step.
+* Carried state (claim_placed, ex_placed, the result rows, and step 2's
+  used and optmask) is updated in place, which saves an allocation per
+  step; every read of a row happens before the row's update, as in the JAX
+  step.
 
 Layout of the flat buffer (flatten_result):
     [assign (G*N) | ex_assign (G*Ne) | unsched (G) | active (N) |
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from ..apis import wellknown as wk
-from .quotient import INT_BIG, _quotient, quotient_nt, type_major
+from .open_claim import _waterfall, open_claim_fill, open_claim_workspace
+from .quotient import INT_BIG, _pods_cap_quotient, _quotient, type_major
 
 _PODS_I = wk.RESOURCE_INDEX[wk.RESOURCE_PODS]
 _I32 = torch.int32
@@ -127,36 +130,40 @@ def n_eff_of(group_count: np.ndarray) -> int:
     return int(nz[-1]) + 1 if nz.size else 0
 
 
-def _pods_cap_quotient(cap_avail: torch.Tensor,
-                       vec_pods: torch.Tensor) -> torch.Tensor:
-    """How many more pods the kubelet pods cap admits: floor(cap_avail/vec)
-    with the same zero-demand/negative conventions as _quotient."""
-    pos = vec_pods > 0
-    div = torch.div(cap_avail, torch.clamp(vec_pods, min=1),
-                    rounding_mode="floor")
-    q = torch.where(pos, div, INT_BIG)
-    q = torch.where((cap_avail < 0) & pos, -1, q)
-    return torch.clamp(q, -1, INT_BIG)
-
-
-def _waterfall(count: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
-    """First-fit distribution of `count` pods over slots with per-slot
-    capacity `fill` (in slot order): m_i = clip(count - sum_{j<i} fill_j,
-    0, fill_i). fill is clamped to `count` first, so the int32 cumsum
-    cannot wrap over several INT_BIG slots."""
-    fill = torch.minimum(fill, count)
-    before = torch.cumsum(fill, 0, dtype=_I32) - fill
-    return torch.minimum(torch.clamp(count - before, min=0), fill)
-
-
 class _Loop(NamedTuple):
     """Per-solve constants of the step loop, made once before it."""
 
     alloc_t: torch.Tensor     # i32 [T, R] active columns, any layout
-    alloc_tm: torch.Tensor    # the same, type-major (quotient_nt's layout)
+    alloc_tm: torch.Tensor    # the same, type-major (open_claim_fill's layout)
     origin: torch.Tensor      # i64 [G] origin row per group
     slot_idx: torch.Tensor    # i32 [N]
     pods_i: int               # pods column in the (compressed) layout
+    workspace: Optional[torch.Tensor]  # open_claim_fill's scratch (CUDA)
+
+
+def _make_loop(inputs: PackInputs, n_slots: int) -> _Loop:
+    """The per-solve constants of pack_impl's step loop."""
+    dev = inputs.group_vec.device
+    alloc_t = inputs.alloc_t
+    if inputs.res_sel is not None:
+        # gather the active resource columns out of the full-width resident
+        # catalog array once per solve; padding lanes are zeroed so they
+        # stay INT_BIG no-ops in every quotient
+        alloc_t = torch.where(inputs.res_mask[None, :],
+                              alloc_t.index_select(1, inputs.res_sel.long()),
+                              0)
+    G = inputs.group_vec.shape[0]
+    origin = (torch.arange(G, device=dev) if inputs.group_origin is None
+              else inputs.group_origin.long())
+    return _Loop(
+        alloc_t=alloc_t, alloc_tm=type_major(alloc_t),
+        origin=origin,
+        slot_idx=torch.arange(n_slots, dtype=_I32, device=dev),
+        # pods column: 0 in the compressed layout (res_sel pins it there),
+        # the wellknown index in the full-width layout
+        pods_i=0 if inputs.res_sel is not None else _PODS_I,
+        workspace=(open_claim_workspace(n_slots, dev)
+                   if dev.type == "cuda" else None))
 
 
 def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
@@ -178,30 +185,14 @@ def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
 
     # ---- 2) open claims, first-fit in creation order -------------------------
     gf = inputs.group_feas[g]                                        # [Pv, T, S]
-    nprov0 = torch.clamp(state.nprov, min=0)
-    feas_n = gf[0][None] if gf.shape[0] == 1 \
-        else gf.index_select(0, nprov0)                              # [N, T, S]
-    nodefeas = state.optmask & feas_n & state.active[:, None, None]
-    q_nt = quotient_nt(loop.alloc_tm, state.used, vec)               # [N, T]
-    pods_i = loop.pods_i
-    if inputs.prov_pods_cap is not None:
-        cap_nt = inputs.prov_pods_cap.index_select(0, nprov0)        # [N, T]
-        q_extra = _pods_cap_quotient(
-            cap_nt - state.used[:, pods_i][:, None], vec[pods_i])
-        q_nt = torch.minimum(q_nt, q_extra)
-    feas_t = nodefeas.any(dim=-1)                                    # [N, T]
-    qmax = torch.where(feas_t, q_nt, -1).amax(dim=-1)                # [N]
-    cap_n = cap - state.claim_placed.index_select(0, og)[0]          # [N]
-    fill_n = torch.clamp(torch.minimum(qmax, cap_n), 0, INT_BIG)
-    m_n = _waterfall(rem, fill_n)                                    # [N]
-    new_used = state.used + m_n[:, None] * vec[None, :]
-    shrunk = nodefeas & (q_nt >= m_n[:, None])[:, :, None]
-    placed = m_n > 0
-    optmask = torch.where(placed[:, None, None], shrunk, state.optmask)
-    used = torch.where(placed[:, None], new_used, state.used)
-    rem = rem - m_n.sum(dtype=_I32)
+    used, optmask = state.used, state.optmask      # updated in place below
+    m_n, rem = open_claim_fill(
+        loop.alloc_tm, vec, cap, gf, og, state.claim_placed,
+        inputs.prov_pods_cap, loop.pods_i, used, optmask, state.nprov,
+        state.active, rem, loop.workspace)                           # [N], []
 
     # ---- 3) bulk-open fresh nodes --------------------------------------------
+    pods_i = loop.pods_i
     p = inputs.group_newprov[g]                                      # []
     p1 = torch.clamp(p, min=0).reshape(1)
     freshfeas = gf.index_select(0, p1)[0] & (p >= 0)                 # [T, S]
@@ -249,26 +240,10 @@ def pack_impl(inputs: PackInputs, n_slots: int, n_eff: int) -> PackResult:
     """Run the pack over groups [0, n_eff). Rows past n_eff must hold no
     pods (n_eff_of computes it from the host group counts)."""
     dev = inputs.group_vec.device
-    alloc_t = inputs.alloc_t
-    if inputs.res_sel is not None:
-        # gather the active resource columns out of the full-width resident
-        # catalog array once per solve; padding lanes are zeroed so they
-        # stay INT_BIG no-ops in every quotient
-        alloc_t = torch.where(inputs.res_mask[None, :],
-                              alloc_t.index_select(1, inputs.res_sel.long()),
-                              0)
     G, R = inputs.group_vec.shape
     T, S = inputs.tiebreak.shape
     Ne = inputs.ex_alloc.shape[0]
-    origin = (torch.arange(G, device=dev) if inputs.group_origin is None
-              else inputs.group_origin.long())
-    loop = _Loop(
-        alloc_t=alloc_t, alloc_tm=type_major(alloc_t),
-        origin=origin,
-        slot_idx=torch.arange(n_slots, dtype=_I32, device=dev),
-        # pods column: 0 in the compressed layout (res_sel pins it there),
-        # the wellknown index in the full-width layout
-        pods_i=0 if inputs.res_sel is not None else _PODS_I)
+    loop = _make_loop(inputs, n_slots)
     state = PackState(
         used=torch.zeros((n_slots, R), dtype=_I32, device=dev),
         optmask=torch.zeros((n_slots, T, S), dtype=torch.bool, device=dev),

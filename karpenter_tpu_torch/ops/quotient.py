@@ -8,8 +8,10 @@ and contributes INT_BIG, negative availability of a demanded resource gives
 
 Replaces the TPU kernel karpenter_tpu/ops/pallas_kernels.py::quotient_nt
 (wrapper quotient_nt_auto), which the JAX package runs in
-karpenter_tpu/ops/packer.py::_step's open-claim fill. Here it runs on every
-pack step.
+karpenter_tpu/ops/packer.py::_step's open-claim fill. The port's pack step
+no longer launches it: its redesign, ops/open_claim.py, fuses the quotient
+with the rest of the fill. It stays as the standalone kernel, held to its
+plain version and timed by chip_smoke.py.
 
 - `quotient_nt` is the wrapper. On a CUDA tensor it launches the
   hand-written kernel csrc/quotient.cu (exact int32 division, so it needs no
@@ -50,6 +52,18 @@ def _quotient(avail: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     # one already holds INT_BIG above)
     q = torch.where((avail < 0) & pos, -1, q)
     return torch.clamp(q.amin(dim=-1), -1, INT_BIG)
+
+
+def _pods_cap_quotient(cap_avail: torch.Tensor,
+                       vec_pods: torch.Tensor) -> torch.Tensor:
+    """How many more pods the kubelet pods cap admits: floor(cap_avail/vec)
+    with the same zero-demand/negative conventions as _quotient."""
+    pos = vec_pods > 0
+    div = torch.div(cap_avail, torch.clamp(vec_pods, min=1),
+                    rounding_mode="floor")
+    q = torch.where(pos, div, INT_BIG)
+    q = torch.where((cap_avail < 0) & pos, -1, q)
+    return torch.clamp(q, -1, INT_BIG)
 
 
 def type_major(alloc_t: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ Port of karpenter_tpu/solver/core.py (TPUSolver) to PyTorch. A solve runs:
    resource axis to its active columns;
 3. pack_inputs_from_numpy uploads the per-solve arrays (the catalog arrays
    stay resident on the device, keyed by catalog seqnum);
-4. ops/packer.pack_flat enqueues the pack, kernel K1 on every step;
+4. ops/packer.pack_flat enqueues the pack, whose open-claim fill is a
+   hand-written CUDA kernel (ops/open_claim.py), two launches a step;
 5. one .cpu() read brings back the flat int32 buffer, the solve's only
    device sync;
 6. decode turns it into node decisions.
