@@ -16,7 +16,7 @@ only, never jax or karpenter_tpu, and prints one line per phase:
              demand, exact-boundary divisions and values from 2**24 up to
              INT_BIG; its time, the plain version's and the byte bound;
 4. open_claim — the pack step's open-claim fill (csrc/open_claim.cu, two
-             launches, in both of its row-max variants) against its plain
+             launches) against its plain
              version open_claim_fill_reference, bit for bit (tolerance 0),
              at N in {32, 128, 512, 1000, 2048} x T = 603 x S = 6 x
              R in {4, 11}, Pv in {1, 3}, with and without the kubelet pods
@@ -53,6 +53,7 @@ line, as does a machine with no CUDA device.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -214,12 +215,13 @@ def copy_existing(nodes):
 
 # -- timing -------------------------------------------------------------------
 
-def device_ms(fn, reps=25, inner=20, warm=5):
+def device_ms(fn, reps=25, inner=20, warm=5, reset=None):
     """Device time of one call of `fn`: the median over `reps` runs (after
     `warm` warm-up calls) of one CUDA-graph replay of `inner` back-to-back
     calls, timed with CUDA events and divided by `inner`. The graph keeps
     the host's per-call Python overhead, and the replay's own launch cost
-    is shared by `inner` calls."""
+    is shared by `inner` calls. `reset`, when given, runs before every
+    replay, outside the timed span."""
     import torch
 
     for _ in range(warm):
@@ -229,10 +231,14 @@ def device_ms(fn, reps=25, inner=20, warm=5):
     with torch.cuda.graph(graph):
         for _ in range(inner):
             fn()
+    if reset is not None:
+        reset()
     graph.replay()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -396,7 +402,7 @@ def open_claim_case(torch, N, T, S, R, Pv, pods_cap, seed, rem):
             for k, v in case.items()}
 
 
-def run_open_claim_kernel(torch, oc, case, cluster):
+def run_open_claim_kernel(torch, oc, case):
     """Both launches on copies of the case's state, with a fresh workspace
     that must come back zeroed: -> (m, optmask, used, rem)."""
     used, optmask = case["used"].clone(), case["optmask"].clone()
@@ -406,7 +412,7 @@ def run_open_claim_kernel(torch, oc, case, cluster):
     rem_out = torch.empty((), dtype=torch.int32, device=used.device)
     args = oc.cuda_args(**dict(case, used=used, optmask=optmask),
                         workspace=ws, m=m, rem_out=rem_out)
-    oc.launch_qmax(args, cluster=cluster)
+    oc.launch_qmax(args)
     oc.launch_apply(args)
     torch.cuda.synchronize()
     check(not bool(ws.any()), "open_claim_fill left its workspace dirty")
@@ -414,8 +420,8 @@ def run_open_claim_kernel(torch, oc, case, cluster):
 
 
 def run_open_claim(torch, oc):
-    """The bit-for-bit sweep of the open-claim fill, both row-max
-    variants, against the plain version. -> max |diff| (0)."""
+    """The bit-for-bit sweep of the open-claim fill against the plain
+    version. -> max |diff| (0)."""
     worst = 0
     cases = 0
     left_over = 0   # rem = INT_BIG cases whose fill left pods unplaced
@@ -424,18 +430,15 @@ def run_open_claim(torch, oc):
             case = open_claim_case(torch, N, T, S, R, Pv, pods_cap,
                                    seed=300 + 3 * i + j, rem=rem)
             want = oc.open_claim_fill_reference(**case)
-            for cluster in (0, 1):
-                got = run_open_claim_kernel(torch, oc, case, cluster)
-                for name, g, w in zip(("m", "optmask", "used", "rem"), got,
-                                      want):
-                    err = int((g.long() - w.long()).abs().max())
-                    worst = max(worst, err)
-                    check(torch.equal(g, w),
-                          f"open_claim_fill (cluster={cluster}) differs from "
-                          f"its plain version in {name} at N={N} T={T} S={S} "
-                          f"R={R} Pv={Pv} pods_cap={pods_cap} rem={rem}: "
-                          f"max |diff| {err}")
-                cases += 1
+            got = run_open_claim_kernel(torch, oc, case)
+            for name, g, w in zip(("m", "optmask", "used", "rem"), got, want):
+                err = int((g.long() - w.long()).abs().max())
+                worst = max(worst, err)
+                check(torch.equal(g, w),
+                      f"open_claim_fill differs from its plain version in "
+                      f"{name} at N={N} T={T} S={S} R={R} Pv={Pv} "
+                      f"pods_cap={pods_cap} rem={rem}: max |diff| {err}")
+            cases += 1
             placed = int((want[0] > 0).sum())
             if rem == 0:
                 check(placed == 0, "rem = 0 must place nothing")
@@ -450,33 +453,52 @@ def run_open_claim(torch, oc):
 
 
 def open_claim_bound_ms(case, m):
-    """Bytes of the fill read once and written once (placed rows only),
-    over the memory rate, and the divisions over the CUDA-core rate."""
+    """The larger of the fill's bytes over the memory rate and its
+    divisions over the CUDA-core rate, counting what this state needs. An
+    inactive row's outputs (m = 0, used and mask unchanged) depend on its
+    `active` byte alone, so only active rows' mask, used, nprov and
+    claim_placed entries are read, with the feasibility and pods-cap planes
+    that active rows use and the alloc columns of demanded resources; one
+    division per demanded resource for each active (n, t) with a feasible
+    option; m and rem written, and placed rows' mask and demanded used
+    entries."""
     N, R = case["used"].shape
     _, T, S = case["optmask"].shape
+    active, vec = case["active"], case["vec"]
     Pv = case["feas"].shape[0]
+    pods_cap = case["prov_pods_cap"] is not None \
+        and int(vec[case["pods_i"]]) > 0
+    n_act = int(active.sum())
+    demanded = int((vec > 0).sum())
     placed = int((m > 0).sum())
-    demanded = int((case["vec"] > 0).sum())
-    nbytes = (T * R * 4 + R * 4 + 4 + Pv * T * S + 8 + N * 4
-              + N * 4 + N + 4 + N * R * 4 + N * T * S          # read
-              + N * 4 + 4 + placed * (R * 4 + T * S))          # written
-    if case["prov_pods_cap"] is not None:
-        nbytes += Pv * T * 4
+    nprov0 = case["nprov"].clamp(min=0).long()
+    planes = 1 if Pv == 1 else int(nprov0[active].unique().numel())
+    feas_n = case["feas"][0][None] if Pv == 1 else case["feas"][nprov0]
+    pairs = int((case["optmask"] & feas_n & active[:, None, None])
+                .any(dim=-1).sum())
+    nbytes = (T * demanded * 4                         # alloc columns
+              + R * 4 + 4 + 8 + 4 + N                  # vec cap og rem active
+              + n_act * (T * S + demanded * 4 + 4)     # mask used claim_placed
+              + (n_act * 4 if Pv > 1 or pods_cap else 0)        # nprov
+              + (planes * T * S if n_act else 0)                # feas
+              + (planes * T * 4 if pods_cap and n_act else 0)   # pods cap
+              + N * 4 + 4 + placed * (T * S + demanded * 4))    # written
     b = nbytes / HBM_BYTES_PER_S * 1e3
-    o = N * T * demanded / CUDA_CORE_OPS_PER_S * 1e3
+    o = pairs * (demanded + pods_cap) / CUDA_CORE_OPS_PER_S * 1e3
     return max(b, o), ("bytes" if b >= o else "operations")
 
 
 def time_open_claim(torch, oc, quotient, label, N, R):
     """The open-claim fill at a path's shape (T = 603, S = 6, Pv = 1, no
     pods cap, as on paths A and B): each launch's device time, their sum,
-    the other row-max variant's launch 1, the bound, the plain version,
-    the sequence the fill replaced (K1 plus the step-2 tensor code), and
-    the host time per call of the wrapper and of that sequence. Launch 1
-    is timed on a state that its own used updates move from call to call,
-    which leaves its work (the same feasible (n, t) pairs, the same
-    divisions) as it is; launch 2 is timed on that state with launch 1's
-    m, which it reaches again on every call."""
+    the bound, the plain version, the sequence the fill replaced (K1 plus
+    the step-2 tensor code), and the host time per call of the wrapper and
+    of that sequence. Each timed call of launch 1 runs on its own copy of
+    the checked state's used rows, restored before every replay, so it
+    does the checked call's work and must give its outputs. Launch 2 is
+    timed on the state the checked call left, with its m: its shrink is
+    idempotent and its work does not depend on the mask's values, so every
+    call rewrites the same words as the checked call."""
     case = open_claim_case(torch, N, 603, 6, R, 1, False, seed=N + R,
                            rem=37 * N)
     want = oc.open_claim_fill_reference(**case)
@@ -496,9 +518,28 @@ def time_open_claim(torch, oc, quotient, label, N, R):
           and torch.equal(used, want[2]) and torch.equal(rem_out, want[3]),
           f"open_claim_fill differs from its plain version at {label}")
     placed_m = m.clone()
+
+    inner = 20
+    clones = [case["used"].clone() for _ in range(inner)]
+    m1 = torch.empty_like(m)
+    rem1 = torch.empty_like(rem_out)
+    rows = itertools.cycle(clones)
+
+    def restore():
+        for u in clones:
+            u.copy_(case["used"])
+
+    def launch1():   # its arguments name the stream it is captured on
+        oc.launch_qmax(oc.cuda_args(**dict(case, used=next(rows)),
+                                    workspace=ws, m=m1, rem_out=rem1))
+
+    l1 = device_ms(launch1, inner=inner, reset=restore)
+    torch.cuda.synchronize()
+    check(torch.equal(m1, want[0]) and torch.equal(rem1, want[3])
+          and all(torch.equal(u, want[2]) for u in clones),
+          f"launch 1's timed calls left other outputs than the checked "
+          f"call at {label}")
     l2 = device_ms(lambda: oc.launch_apply(args()))
-    l1 = device_ms(lambda: oc.launch_qmax(args(), cluster=0))
-    l1_cluster = device_ms(lambda: oc.launch_qmax(args(), cluster=1))
     plain = device_ms(lambda: oc.open_claim_fill_reference(**case))
     k1_seq = device_ms(lambda: oc.open_claim_fill_reference(
         **case, quotient=quotient.quotient_nt))
@@ -506,11 +547,10 @@ def time_open_claim(torch, oc, quotient, label, N, R):
     k1_seq_host = host_us(lambda: oc.open_claim_fill_reference(
         **case, quotient=quotient.quotient_nt))
     bound, by = open_claim_bound_ms(case, placed_m)
-    l1_main = l1_cluster if oc.CLUSTER else l1
     row = {"N": N, "T": 603, "S": 6, "R": R, "Pv": 1,
+           "active_rows": int(case["active"].sum()),
            "placed_rows": int((placed_m > 0).sum()),
-           "launch1_ms": l1_main, "launch2_ms": l2, "ms": l1_main + l2,
-           "launch1_atomic_ms": l1, "launch1_cluster_ms": l1_cluster,
+           "launch1_ms": l1, "launch2_ms": l2, "ms": l1 + l2,
            "plain_ms": plain, "k1_sequence_ms": k1_seq,
            "host_us": host, "k1_sequence_host_us": k1_seq_host,
            "bound_ms": bound, "bound_by": by}
@@ -769,7 +809,6 @@ def main() -> int:
             "bound_by": oc_a["bound_by"],
             "library_ms": None,
             "k1_sequence_ms": oc_a["k1_sequence_ms"],
-            "cluster_variant": open_claim.CLUSTER,
             "shapes": oc_rows,
         }, {
             "name": "quotient_nt",

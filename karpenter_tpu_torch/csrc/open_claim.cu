@@ -37,17 +37,15 @@
 //     bucket, so every SM has work. One thread is one (n, t); it ORs the S
 //     option bytes of optmask & feas as whole words (S = 6 is three 16-bit
 //     words). Each CTA reduces its tile to a partial row max; the partials of
-//     a row are combined either by atomicMax into a zeroed per-solve scratch
-//     (the integer max does not depend on order, so the result is
-//     deterministic) or, in the CLUSTER variant, in a thread block cluster
-//     whose rank 0 reads its peers' shared memory. chip_smoke.py times both;
-//     on an H100 the cluster's extra barriers made launch 1 slower at the
-//     pack's shapes, so the wrapper uses atomicMax (ops/open_claim.CLUSTER).
-//     Both work for any T: a row's CTAs walk its type tiles in a loop, so a
-//     cluster of at most 8 covers catalogs of any size. The last CTA to finish
-//     (threadfence + atomic ticket) runs the waterfall over all N rows, writes
-//     m, rem_out and the new used rows, and zeroes the scratch and the ticket
-//     for the next step, so no memset launch is needed.
+//     a row are combined by atomicMax into a zeroed per-solve scratch (the
+//     integer max does not depend on order, so the result is deterministic).
+//     A thread block cluster whose rank 0 reads its peers' shared memory was
+//     measured as the alternative and was slower on an H100 at the pack's
+//     shapes (its extra barriers cost more than the atomics; PERF.md).
+//     One CTA per type tile covers any T. The last CTA to finish (threadfence
+//     + atomic ticket) runs the waterfall over all N rows, writes m, rem_out
+//     and the new used rows, and zeroes the scratch and the ticket for the
+//     next step, so no memset launch is needed.
 //   * Launch 2 (open_claim_apply_kernel), same grid, shrinks optmask in
 //     place. Rows with m = 0 (most rows on most steps) return at once. For
 //     m > 0, q[n,t] >= m holds exactly when every demanded r has
@@ -72,18 +70,14 @@
 // C entry points: open_claim_qmax_launch, open_claim_apply_launch, bound with
 // ctypes (karpenter_tpu_torch/ops/open_claim.py).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int INT_BIG = 1 << 30;
 constexpr int TILE_T = 128;              // threads per CTA, one type each
 constexpr int WARPS = TILE_T / 32;
-constexpr int MAX_CLUSTER = 8;           // portable thread block cluster size
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Step {
@@ -289,15 +283,13 @@ __device__ void waterfall(const Step& a, const int* vec_s) {
     }
 }
 
-// Launch 1: grid (C, N), C CTAs per row walking the row's type tiles; with
-// CLUSTER the C CTAs of a row form one thread block cluster.
-template <int R, bool CLUSTER>
+// Launch 1: grid (T tiles, N), one CTA per (type tile, row).
+template <int R>
 __global__ void __launch_bounds__(TILE_T) open_claim_qmax_kernel(Step a) {
     __shared__ int vec_s[R];
     __shared__ int used_s[R];
     __shared__ Magic mg_s[R];
     __shared__ int red_s[WARPS];
-    __shared__ int part_s;
     __shared__ bool last_s;
 
     const int n = blockIdx.y;
@@ -314,45 +306,19 @@ __global__ void __launch_bounds__(TILE_T) open_claim_qmax_kernel(Step a) {
         const int pn = max(a.nprov[n], 0);
         const uint8_t* plane = a.feas + static_cast<long long>(a.Pv == 1 ? 0 : pn) * a.T * a.S;
         const uint8_t* row = a.optmask + static_cast<long long>(n) * a.T * a.S;
-        const int tiles = (a.T + TILE_T - 1) / TILE_T;
-        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-            const int t = tile * TILE_T + threadIdx.x;
-            if (t < a.T && any_and(row + static_cast<long long>(t) * a.S,
-                                   plane + static_cast<long long>(t) * a.S, a.S, a.word)) {
-                best = max(best, quotient<R>(a, t, pn, used_s, vec_s, mg_s));
-            }
+        const int t = blockIdx.x * TILE_T + threadIdx.x;
+        if (t < a.T && any_and(row + static_cast<long long>(t) * a.S,
+                               plane + static_cast<long long>(t) * a.S, a.S, a.word)) {
+            best = quotient<R>(a, t, pn, used_s, vec_s, mg_s);
         }
     }
     best = block_max(best, red_s);
 
-    unsigned arrivals;
-    if constexpr (CLUSTER) {
-        cg::cluster_group cluster = cg::this_cluster();
-        if (threadIdx.x == 0) {
-            part_s = best;
-        }
-        cluster.sync();
-        if (cluster.block_rank() == 0 && threadIdx.x == 0) {
-            int row_max = part_s;
-            for (unsigned r = 1; r < cluster.num_blocks(); ++r) {
-                row_max = max(row_max, *cluster.map_shared_rank(&part_s, r));
-            }
-            a.ws[1 + n] = row_max + 1;
-        }
-        cluster.sync();  // peers keep their shared memory until rank 0 has read it
-        if (cluster.block_rank() != 0) {
-            return;
-        }
-        arrivals = gridDim.y;
-    } else {
-        if (threadIdx.x == 0) {
-            atomicMax(&a.ws[1 + n], best + 1);
-        }
-        arrivals = gridDim.x * gridDim.y;
-    }
     if (threadIdx.x == 0) {
+        atomicMax(&a.ws[1 + n], best + 1);
         __threadfence();
-        last_s = atomicAdd(reinterpret_cast<unsigned*>(a.ws), 1u) == arrivals - 1;
+        last_s = atomicAdd(reinterpret_cast<unsigned*>(a.ws), 1u) ==
+                 gridDim.x * gridDim.y - 1;
     }
     __syncthreads();
     if (!last_s) {
@@ -404,30 +370,10 @@ __global__ void __launch_bounds__(TILE_T) open_claim_apply_kernel(Step a) {
 }
 
 template <int R>
-cudaError_t launch_qmax(const Step& a, bool cluster, cudaStream_t s) {
+cudaError_t launch_qmax(const Step& a, cudaStream_t s) {
     const int tiles = (a.T + TILE_T - 1) / TILE_T;
-    if (!cluster) {
-        open_claim_qmax_kernel<R, false><<<dim3(tiles, a.N), TILE_T, 0, s>>>(a);
-        return cudaGetLastError();
-    }
-    int c = 1;  // the largest power of two up to min(tiles, MAX_CLUSTER)
-    while (c * 2 <= min(tiles, MAX_CLUSTER)) {
-        c *= 2;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(c, a.N);
-    cfg.blockDim = dim3(TILE_T);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = c;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(&cfg, open_claim_qmax_kernel<R, true>, a);
-    return err != cudaSuccess ? err : cudaGetLastError();
+    open_claim_qmax_kernel<R><<<dim3(tiles, a.N), TILE_T, 0, s>>>(a);
+    return cudaGetLastError();
 }
 
 template <int R>
@@ -467,13 +413,13 @@ Step make_step(const void* alloc_rt, const void* vec, const void* cap, const voi
 // Each returns the launch's CUDA error (0 = launched), or cudaErrorInvalidValue
 // for a width outside 1..16. The wrapper checks shapes, dtypes, layouts and
 // alignment before it calls.
-extern "C" int open_claim_qmax_launch(KTP_STEP_ARGS, int cluster, void* stream) {
+extern "C" int open_claim_qmax_launch(KTP_STEP_ARGS, void* stream) {
     const Step a = KTP_MAKE_STEP;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (R) {
 #define KTP_CASE(W) \
     case W:         \
-        return static_cast<int>(launch_qmax<W>(a, cluster != 0, s));
+        return static_cast<int>(launch_qmax<W>(a, s));
         KTP_WIDTHS(KTP_CASE)
 #undef KTP_CASE
         default:

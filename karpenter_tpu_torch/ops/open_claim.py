@@ -45,11 +45,6 @@ from .quotient import (INT_BIG, MAX_WIDTH, _pods_cap_quotient,
 
 KERNEL = "open_claim_fill"
 MAX_SLOTS = 65535  # the CUDA grid's y limit: one row of CTAs per slot
-# How launch 1 combines the partial row maxima of a row's type tiles:
-# atomicMax into the scratch (0) or a thread block cluster reading its
-# peers' shared memory (1). chip_smoke.py times both; atomicMax was the
-# faster at the pack's shapes on an H100.
-CLUSTER = 0
 
 _I32 = torch.int32
 _fns = None
@@ -161,13 +156,10 @@ def _launchers():
 
         lib = _build.load("open_claim")
         step_args = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-        qmax = lib.open_claim_qmax_launch
-        qmax.argtypes = step_args + [ctypes.c_int, ctypes.c_void_p]
-        qmax.restype = ctypes.c_int
-        apply = lib.open_claim_apply_launch
-        apply.argtypes = step_args + [ctypes.c_void_p]
-        apply.restype = ctypes.c_int
-        _fns = (qmax, apply)
+        _fns = (lib.open_claim_qmax_launch, lib.open_claim_apply_launch)
+        for fn in _fns:
+            fn.argtypes = step_args + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return _fns
 
 
@@ -180,10 +172,10 @@ def _word(S: int, *tensors: torch.Tensor) -> int:
     return 1
 
 
-def launch_qmax(args: tuple, cluster: int = CLUSTER) -> None:
+def launch_qmax(args: tuple) -> None:
     """Launch 1 alone (qmax, waterfall, m, rem and used), for timing; the
     arguments are `cuda_args`'s."""
-    err = _launchers()[0](*args[:-1], cluster, args[-1])
+    err = _launchers()[0](*args)
     if err != 0:
         raise RuntimeError(f"open_claim_fill: launch 1 failed with CUDA "
                            f"error {err}")
@@ -225,8 +217,8 @@ def open_claim_fill(alloc_t, vec, cap, feas, og, claim_placed, prov_pods_cap,
     launch the kernel (two launches) or raise; CPU tensors take the plain
     version. `alloc_t` is type-major (quotient.type_major); `og` is the
     group's origin row as an int64 [1] tensor; `cap` and `rem` are 0-d.
-    `workspace` (open_claim_workspace) is reused across the steps of a
-    solve on CUDA; without it each call allocates its own."""
+    On CUDA, `workspace` (open_claim_workspace) is required and reused
+    across the steps of a solve; the CPU path ignores it."""
     _check(alloc_t, vec, cap, feas, og, claim_placed, prov_pods_cap, pods_i,
            used, optmask, nprov, active, rem)
     if used.device.type == "cpu":
@@ -243,7 +235,8 @@ def open_claim_fill(alloc_t, vec, cap, feas, og, claim_placed, prov_pods_cap,
     if not 1 <= N <= MAX_SLOTS:
         raise ValueError(f"open_claim_fill: {N} slots outside 1..{MAX_SLOTS}")
     if workspace is None:
-        workspace = open_claim_workspace(N, used.device)
+        raise ValueError("open_claim_fill: CUDA tensors need a workspace "
+                         "(open_claim_workspace)")
     m = torch.empty((N,), dtype=_I32, device=used.device)
     rem_out = torch.empty((), dtype=_I32, device=used.device)
     with torch.cuda.device(used.device):
