@@ -3,9 +3,11 @@
 controllers, their incremental and explain planes, the operator and its
 spot plane, the served operator over the HTTP coordination plane, the
 solver service, the CLI, the fleet (its frontend, wire adapter and
-replica processes) and the chaos drills on one CUDA card.
+replica processes), the chaos drills, the continuous profiler and the
+multi-rank mesh on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke: every phase below
+    python3 chip_smoke.py --slice    # paths A and B and phases 27-29 only
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or any
 CUDA card the kernels build for: sm_90a). It imports karpenter_tpu_torch
@@ -260,7 +262,47 @@ only, never jax or karpenter_tpu, and prints one line per phase:
              and 2,000 simultaneous reclaims on the card: it passes, every
              routed provisioning solve on the "cuda" rung, the fill
              launched; its key numbers (its equality with device="cpu" is
-             held by the CPU tests at 500 nodes).
+             held by the CPU tests at 500 nodes);
+27. profiler — path A's solve 5 times with the profiling plane on (the
+             continuous profiler's host sampler running, as it has since
+             the first solve), 5 with the sampler alone held stopped and
+             5 with the plane disabled, interleaved a solve at a time:
+             each solve with the plane on files
+             one device-ladder event in mode cuda-events (two CUDA events
+             around the pack), within the solve's wall and at least path
+             A's device-busy ms from the profile phase; none while
+             disabled, and no sample with the sampler stopped; the three
+             medians, the sampler's overhead gauge and its sweep seconds
+             over each window's wall, the process's thread count;
+             /debug/profilez of a served
+             operator answering 200 with samples in both formats; a
+             torch.profiler trace through the ladder's start_trace and
+             stop_trace under port_results/;
+28. mesh_1 — the mesh's split of the fill (launch 1 in its row-max mode,
+             the waterfall as tensor code, launch 2) against its plain
+             halves, bit for bit, at A's and B's shapes, the row-max mode
+             timed against its plain version and its bound; then a
+             world-size-1 NCCL process group in this process (a FileStore
+             under port_results/) and ShardedContext 1 x 1: path A's flat
+             buffer through dispatch_flat equal to the card's single
+             dispatch, one launch in each mode a step, 3 all_reduces a step
+             and 2 at the end;
+29. mesh_ranks — separate processes (`chip_smoke.py --mesh-rank`) share
+             the card over gloo, the kernels built once by this process:
+             parity, not speed. A 2-rank mesh (nodes 1 x types 2) and a
+             4-rank mesh (2 x 2) each solve BASELINE config 4 (50k pods in
+             25 deployments, the 603-type catalog, 8 provisioners; copied
+             from benchmarks/baseline_configs.py:194-223) routed
+             cuda-sharded, flat buffer equal to the single card's and
+             decisions equal to the native scan's; the 4-rank mesh also
+             path B, whose existing nodes and slots span both node slices;
+             the 2-rank lane mesh config 3's 996 lanes, verdict table and
+             action equal to the one-shot sweep's; per mesh the walls, the
+             fill launches per rank and the collectives per solve. Then
+             `solver-serve --distributed` as 2 ranks launched as torchrun
+             launches them answers a gRPC Solve routed cuda-sharded over 2
+             devices with the direct solve's decisions, and both ranks exit
+             0 after SIGINT.
 
 Paths A and B check that every node's used vector fits its decided type,
 that packed plus unschedulable equals the input pods, that the open-claim
@@ -281,6 +323,7 @@ line, as does a machine with no CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import itertools
 import json
@@ -289,6 +332,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -461,9 +505,16 @@ def device_ms(fn, reps=25, inner=20, warm=5, reset=None):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
+    # a garbage collection in the middle of the capture, in this thread or
+    # another, may destroy a CUDA object, which invalidates the capture
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
+    finally:
+        gc.enable()
     if reset is not None:
         reset()
     graph.replay()
@@ -3931,7 +3982,693 @@ def run_chaos_spot_storm(LAUNCHES, KERNEL) -> int:
     return launches
 
 
-def main() -> int:
+# -- the continuous profiler and the mesh (phases 27-29) -------------------------
+
+RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "port_results")
+
+
+@contextlib.contextmanager
+def held_stopped(host):
+    """The host sampler stopped for the block, its ensure_started refused
+    on this instance, then restarted."""
+    host.stop()
+    host.ensure_started = lambda: False
+    try:
+        yield
+    finally:
+        del host.ensure_started
+        check(host.ensure_started(), "profiler: the sampler did not "
+                                     "restart")
+
+
+def run_profiler(torch, catalog, prov, pods, busy_ms):
+    """profiler: path A's solve 5 times with the profiling plane on (its
+    host sampler has run since the first solve of this process), each
+    filing one device-ladder event measured by CUDA events (its ms within
+    the solve's wall and at least the profile phase's device-busy ms);
+    5 with the plane on and the sampler alone stopped, each still filing
+    its event, and no sample taken; 5 with the plane disabled, filing
+    none, the three windows interleaved a solve at a time; the three
+    medians, the sampler's overhead gauge since it started and its sweep
+    seconds over each window's wall; /debug/profilez of a served operator
+    in both formats; a torch.profiler trace through start_trace/stop_trace.
+
+    A solve scope restarts a stopped sampler (ensure_started, as in the
+    JAX package), and the port adds no switch to hold it stopped, so the
+    sampler-off window holds it stopped by refusing this instance's
+    ensure_started for the window's length."""
+    from karpenter_tpu_torch import profiling
+    from karpenter_tpu_torch.apis.settings import Settings
+    from karpenter_tpu_torch.fake.cloud import FakeCloud
+    from karpenter_tpu_torch.operator import Operator
+    from karpenter_tpu_torch.solver.core import TorchSolver
+    from karpenter_tpu_torch.utils.clock import FakeClock
+
+    check(profiling.enabled(), "profiler: the profiling plane must be on "
+                               "by default")
+    dev, host = profiling.PROFILER.device, profiling.PROFILER.host
+    check(dev.mode() == "cuda-events", f"profiler: ladder mode {dev.mode()}")
+    check(host.running(), "profiler: the sampler is not running after the "
+                          "solves of this process")
+    solver = TorchSolver(catalog, [prov])
+    solver.solve(list(pods))
+    labels = ("on", "sampler_off", "off")
+    walls = {label: [] for label in labels}
+    counts = {label: collections.Counter() for label in labels}
+    events = []
+    gauge = host.overhead_ratio()
+    # the windows interleave, one solve of each a round, so that the
+    # host's drift falls on the three alike; off: the plane disabled, as
+    # the JAX profile drill's A/B runs it (a disabled plane's sampler
+    # idles and files no event)
+    for _ in range(TIMED_SOLVES):
+        for label in labels:
+            with (profiling.disabled() if label == "off"
+                  else held_stopped(host) if label == "sampler_off"
+                  else contextlib.nullcontext()):
+                c = counts[label]
+                before, samples0 = dev.events_total, host.samples_total
+                cost0, t0 = host.sample_cost_s, time.perf_counter()
+                solver.solve(list(pods))
+                wall = time.perf_counter() - t0
+                c["filed"] += dev.events_total - before
+                c["sampled"] += host.samples_total - samples0
+                c["running"] += host.running()
+                c["cost_s"] += host.sample_cost_s - cost0
+                c["wall_s"] += wall
+                walls[label].append(wall * 1000)
+                if label == "on":
+                    events.append((dev.events()[-1], wall * 1000))
+    window = {label: c["cost_s"] / c["wall_s"]
+              for label, c in counts.items()}
+    off, stopped = counts["off"], counts["sampler_off"]
+    check(off["filed"] == 0, f"profiler: {off['filed']} events while "
+                             f"disabled")
+    check(stopped["filed"] == TIMED_SOLVES and stopped["sampled"] == 0
+          and stopped["running"] == 0,
+          f"profiler: {dict(stopped)} with the sampler stopped")
+    check(counts["on"]["filed"] == TIMED_SOLVES,
+          f"profiler: {counts['on']['filed']} device events for "
+          f"{TIMED_SOLVES} solves")
+    for ev, wall in events:
+        check(ev["mode"] == "cuda-events", f"profiler: event {ev}")
+        check(busy_ms <= ev["ms"] <= wall,
+              f"profiler: an event of {ev['ms']} ms outside "
+              f"[{busy_ms:.4f}, {wall:.3f}]")
+    events = [ev for ev, _ in events]
+    check(host.running() and host.samples_total > 0,
+          "profiler: the sampler is not running")
+    clock = FakeClock()
+    op = Operator(FakeCloud(catalog=catalog, clock=clock),
+                  Settings(cluster_name="smoke-prof",
+                           cluster_endpoint="https://k"),
+                  catalog, clock=clock, serve_http=True, metrics_port=0,
+                  health_port=-1, webhook_port=-1)
+    ports = op.serving.start()
+    try:
+        base = f"http://127.0.0.1:{ports['metrics']}/debug/profilez"
+        code, body, _ = http_call(base)
+        doc = json.loads(body)
+        check(code == 200 and doc["stacks"]
+              and doc["device"]["mode"] == "cuda-events",
+              f"profiler: /debug/profilez answered {code}")
+        code_f, folded, _ = http_call(base + "?format=folded&n=20")
+        check(code_f == 200 and folded.strip(),
+              f"profiler: ?format=folded answered {code_f}")
+    finally:
+        op.serving.stop()
+        op.stop()
+    trace_dir = os.path.join(RESULTS_DIR, "profiler_trace")
+    if os.path.exists(os.path.join(trace_dir, "trace.json")):
+        os.remove(os.path.join(trace_dir, "trace.json"))
+    check(dev.start_trace(trace_dir), "profiler: start_trace refused")
+    solver.solve(list(pods))
+    dev.stop_trace()
+    trace = os.path.join(trace_dir, "trace.json")
+    check(os.path.getsize(trace) > 0, "profiler: no trace written")
+    row = {"mode": dev.mode(), "events_per_solve": 1,
+           "event_ms": [e["ms"] for e in events], "busy_ms": busy_ms,
+           "median_on_ms": statistics.median(walls["on"]),
+           "median_sampler_off_ms": statistics.median(walls["sampler_off"]),
+           "median_off_ms": statistics.median(walls["off"]),
+           "overhead_ratio_gauge": gauge,
+           "sweep_share_on_window": window["on"],
+           "sweep_share_sampler_off_window": window["sampler_off"],
+           "sweep_share_off_window": window["off"],
+           "threads": threading.active_count(),
+           "samples": host.samples_total, "stacks": len(doc["stacks"]),
+           "profilez": code, "folded": code_f,
+           "trace_bytes": os.path.getsize(trace)}
+    phase("profiler", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                         for k, v in row.items()})
+    return row
+
+
+def rowmax_bound_ms(case):
+    """The row-max mode's bound, one lane: it reads active rows' mask, used
+    (demanded columns) and nprov, the feasibility and pods-cap planes they
+    use, the demanded alloc columns, vec and every row's active byte, and
+    writes qmax [N]; one division per demanded resource (and the pods cap)
+    for each active (n, t) with a feasible option."""
+    used, optmask, active, vec = (case["used"][0], case["optmask"][0],
+                                  case["active"][0], case["vec"][0])
+    N, R = used.shape
+    T, S = optmask.shape[1:]
+    feas, pc, pods_i = case["feas"][0], case["prov_pods_cap"], case["pods_i"]
+    nprov0 = case["nprov"][0].clamp(min=0).long()
+    feas_n = feas[0][None] if feas.shape[0] == 1 else feas[nprov0]
+    pairs = int((optmask & feas_n & active[:, None, None]).any(dim=-1).sum())
+    n_act = int(active.sum())
+    demanded = int((vec > 0).sum())
+    use_pc = pc is not None and bool(vec[pods_i] > 0)
+    planes = len(set(nprov0[active].tolist())) if feas.shape[0] > 1 \
+        else int(n_act > 0)
+    nbytes = (R * 4 + N + n_act * (T * S + demanded * 4 + 4)
+              + planes * T * S + T * demanded * 4
+              + (planes * T * 4 if use_pc else 0) + N * 4)
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = pairs * (demanded + int(use_pc)) / CUDA_CORE_OPS_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations")
+
+
+def check_rowmax(torch, oc, label, case, timed=False):
+    """The split fill on the card against its plain halves, bit for bit:
+    launch 1's row-max mode against open_claim_rowmax_reference, then, on
+    the plain waterfall's m and the moved used rows, launch 2 against
+    open_claim_apply_reference. With `timed`, the row-max launch's device
+    ms, the plain row max's and the bound. -> (max |diff|, row)."""
+    want_q, q_nt, nodefeas = oc.open_claim_rowmax_reference(
+        case["alloc_t"], case["vec"], case["feas"], case["prov_pods_cap"],
+        case["pods_i"], case["used"], case["optmask"], case["nprov"],
+        case["active"])
+    used, optmask = case["used"].clone(), case["optmask"].clone()
+    N = used.shape[1]
+    fill = oc.OpenClaimFill(case["alloc_t"], case["prov_pods_cap"],
+                            case["pods_i"],
+                            oc.open_claim_workspace(N, used.device, 1))
+    args = dict(vec=case["vec"], cap=case["cap"], feas=case["feas"],
+                og=case["og"], claim_placed=case["claim_placed"], used=used,
+                optmask=optmask, nprov=case["nprov"], active=case["active"],
+                rem=case["rem"])
+    qmax = fill.rowmax(**args)
+    m = oc._waterfall(case["rem"], oc.claim_fill(
+        want_q, case["cap"], case["og"], case["claim_placed"]))
+    used.copy_(oc.placed_used(used, case["vec"], m))
+    fill.apply(**args, m=m.contiguous())
+    want_mask = oc.open_claim_apply_reference(q_nt, nodefeas, m,
+                                              case["optmask"])
+    torch.cuda.synchronize()
+    worst = max(int((qmax.long() - want_q.long()).abs().max()),
+                int((optmask.long() - want_mask.long()).abs().max()))
+    check(torch.equal(qmax, want_q) and torch.equal(optmask, want_mask),
+          f"the row-max split differs from its plain version at {label}: "
+          f"max |diff| {worst}")
+    row = {"N": N, "T": optmask.shape[2], "R": used.shape[2],
+           "placed_rows": int((m > 0).sum())}
+    if timed:
+        rem_out = torch.empty((1,), dtype=torch.int32, device=used.device)
+        q1 = torch.empty_like(qmax)
+
+        # the case's own state (the row-max mode writes neither used nor
+        # the mask), so every timed call must give the checked qmax
+        state = dict(args, used=case["used"], optmask=case["optmask"])
+
+        def launch():   # its arguments name the stream it is captured on
+            oc.launch_rowmax(oc.OpenClaimFill(
+                case["alloc_t"], case["prov_pods_cap"], case["pods_i"],
+                fill.workspace).args(**state, m=q1, rem_out=rem_out))
+
+        row["ms"] = device_ms(launch)
+        row["plain_ms"] = device_ms(lambda: oc.open_claim_rowmax_reference(
+            case["alloc_t"], case["vec"], case["feas"], case["prov_pods_cap"],
+            case["pods_i"], case["used"], case["optmask"], case["nprov"],
+            case["active"]))
+        row["bound_ms"], row["bound_by"] = rowmax_bound_ms(case)
+        torch.cuda.synchronize()
+        check(torch.equal(q1, want_q), f"the timed row-max calls at {label} "
+                                       f"left another qmax")
+    phase(f"rowmax_{label}_shape", exact=True, max_abs_err=worst,
+          **{k: (f"{v:.5f}" if isinstance(v, float) else v)
+             for k, v in row.items()})
+    return worst, row
+
+
+def run_mesh_1(torch, catalog, prov, pods_a, info_a, info_b, LAUNCHES):
+    """mesh_1: a world-size-1 NCCL process group in this process (a
+    FileStore under port_results/), ShardedContext 1 x 1: path A's flat
+    buffer through dispatch_flat equals TorchSolver's on the card, the
+    split fill launching once in each mode a step; and the split against
+    its plain halves at A's and B's shapes, with the row-max mode timed."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from karpenter_tpu_torch.models.encode import encode_problem
+    from karpenter_tpu_torch.ops import open_claim as oc
+    from karpenter_tpu_torch.parallel import multihost, sharded
+    from karpenter_tpu_torch.solver.core import (TorchSolver,
+                                                 build_pack_inputs,
+                                                 dispatch_pack_inputs)
+
+    worst, rows = 0, {}
+    for label, info in (("pathA", info_a), ("pathB", info_b)):
+        case = open_claim_case(torch, info["slots"], 603, 6,
+                               info["res_width"], 1, False,
+                               seed=info["slots"] + info["res_width"],
+                               rem=37 * info["slots"])
+        err, rows[label] = check_rowmax(torch, oc, label, case, timed=True)
+        worst = max(worst, err)
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    store = os.path.join(RESULTS_DIR, "mesh_1.store")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        ctx = sharded.ShardedContext()
+        solver = TorchSolver(catalog, [prov])
+        enc = encode_problem(catalog, [prov], list(pods_a),
+                             grid=solver.grid(),
+                             group_cache=solver._group_cache)
+        fields, plan = build_pack_inputs(enc, solver._dev_alloc_t,
+                                         solver._dev_tiebreak)
+        single = dispatch_pack_inputs(fields, plan, solver.device).cpu()
+        ctx.dispatch_flat(fields, plan.slots, enc.grid).cpu()  # uploads
+        LAUNCHES.reset()
+        sharded.COLLECTIVES.reset()
+        t0 = time.perf_counter()
+        flat = ctx.dispatch_flat(fields, plan.slots, enc.grid).cpu()
+        wall = (time.perf_counter() - t0) * 1000
+        launches = {oc.KERNEL: LAUNCHES.get(oc.KERNEL),
+                    oc.ROWMAX_KERNEL: LAUNCHES.get(oc.ROWMAX_KERNEL)}
+        collectives = sharded.COLLECTIVES.get("all_reduce")
+        steps = info_a["steps"]
+        check(np.array_equal(flat.numpy(), single.numpy()),
+              "mesh_1: the 1 x 1 mesh's flat buffer differs from the card's")
+        check(launches[oc.ROWMAX_KERNEL] == steps
+              and launches[oc.KERNEL] == steps,
+              f"mesh_1: launches {launches} over {steps} steps")
+        check(collectives == 3 * steps + 2,
+              f"mesh_1: {collectives} all_reduces over {steps} steps")
+    finally:
+        multihost.shutdown_distributed()
+    phase("mesh_1", backend="nccl", world=1, mesh=ctx.describe(),
+          flat_bit_equal_card=True, steps=steps,
+          rowmax_launches=launches[oc.ROWMAX_KERNEL],
+          fill_launches=launches[oc.KERNEL],
+          all_reduces_per_solve=collectives, wall_ms=f"{wall:.3f}",
+          split_exact=True, max_abs_err=worst)
+    return {"launches": launches, "rows": rows, "max_abs_err": worst}
+
+
+def config4_problem():
+    """BASELINE config 4, copied from benchmarks/baseline_configs.py:194-223
+    (stress_problem_50k): 50k pods in 25 deployments, the 603-type fleet
+    catalog, 8 provisioners with overlapping capacity-type and arch
+    requirements. -> (catalog, provisioners, pods)."""
+    from karpenter_tpu_torch.apis import wellknown as wk
+    from karpenter_tpu_torch.apis.provisioner import Provisioner
+    from karpenter_tpu_torch.models.pod import make_pod
+    from karpenter_tpu_torch.models.requirements import OP_IN, Requirements
+    from karpenter_tpu_torch.providers.instancetypes import generate_fleet_catalog
+
+    catalog = generate_fleet_catalog()
+    provisioners = []
+    for i, (ct, archs) in enumerate((
+            (["on-demand"], ["amd64"]),
+            (["spot", "on-demand"], ["amd64"]),
+            (["spot"], ["amd64"]),
+            (["on-demand"], ["arm64"]),
+            (["spot", "on-demand"], ["arm64"]),
+            (["spot", "on-demand"], ["amd64", "arm64"]),
+            (["on-demand"], ["amd64", "arm64"]),
+            (["spot"], ["amd64", "arm64"]))):
+        p = Provisioner(name=f"prov-{i}", weight=i,
+                        requirements=Requirements.of(
+                            (wk.LABEL_CAPACITY_TYPE, OP_IN, ct),
+                            (wk.LABEL_ARCH, OP_IN, archs)))
+        p.set_defaults()
+        provisioners.append(p)
+    n_dep, per = 25, 50_000 // 25
+    pods = [make_pod(f"d{d}-p{i}", cpu=f"{250 * (d % 4 + 1)}m",
+                     memory=f"{512 * (d % 8 + 1)}Mi")
+            for d in range(n_dep) for i in range(per)]
+    return catalog, provisioners, pods
+
+
+MESH_TIMED = 3
+
+
+def mesh_rank_main(spec_path, rank):
+    """One rank of a mesh_ranks group (`chip_smoke.py --mesh-rank SPEC
+    RANK`): ranks share the card over gloo. Rank 0 drives its jobs through
+    the process's ShardedContext and writes their results; the other ranks
+    follow and write their launch and collective counts. Rank 0 counts
+    each mesh run (a solve, a sweep, the stop) from 0 just before it and
+    reads the counts just after, before any single-card or one-shot
+    comparison runs; the sum of its mesh runs' counts is what each
+    follower counts over its whole life."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from karpenter_tpu_torch.device import LAUNCHES
+    from karpenter_tpu_torch.ops import consolidate, open_claim
+    from karpenter_tpu_torch.parallel import multihost, sharded
+    from karpenter_tpu_torch.solver import buckets
+    from karpenter_tpu_torch.solver.core import NativeSolver, TorchSolver
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    check(multihost.initialize_distributed(f"file://{spec['store']}",
+                                           device="cuda"),
+          "mesh_ranks: no process group")
+    import torch.distributed as dist
+
+    check(dist.get_backend() == "gloo", "mesh_ranks: ranks sharing one card "
+                                        "must use gloo")
+    ctx = sharded.shared_context("cuda")
+    out = {"rank": rank}
+    if rank != 0:
+        LAUNCHES.reset()
+        sharded.COLLECTIVES.reset()
+        ctx.follow()
+        multihost.shutdown_distributed()
+        out.update(launches=LAUNCHES.take(),
+                   collectives=sharded.COLLECTIVES.take())
+        with open(f"{spec['out']}.{rank}", "w") as f:
+            json.dump(out, f)
+        return 0
+    totals = {"launches": collections.Counter(),
+              "collectives": collections.Counter()}
+
+    def counted(fn):
+        """fn() with the counts from 0: -> (its result, its launches, its
+        collectives), both added to the mesh runs' totals."""
+        LAUNCHES.reset()
+        sharded.COLLECTIVES.reset()
+        result = fn()
+        launches, coll = LAUNCHES.take(), sharded.COLLECTIVES.take()
+        totals["launches"].update(launches)
+        totals["collectives"].update(coll)
+        return result, launches, coll
+
+    for job in spec["jobs"]:
+        if job in ("config4", "pathB"):
+            if job == "config4":
+                catalog, provs, pods = config4_problem()
+                existing = ()
+            else:
+                from karpenter_tpu_torch.providers.instancetypes import \
+                    generate_fleet_catalog
+
+                catalog = generate_fleet_catalog()
+                provs, pods = [provisioner()], mixed_5k_pods()
+                existing = existing_nodes(catalog)
+            mesh = TorchSolver(catalog, provs, mesh_ctx=ctx,
+                               router=buckets.ShapeRouter(
+                                   n_devices=ctx.device_count,
+                                   crossover_cells=0))
+            walls, counts = [], []
+            for i in range(1 + MESH_TIMED):
+                held = copy_existing(existing)
+                t0 = time.perf_counter()
+                res, launches, coll = counted(
+                    lambda: mesh.solve(list(pods), existing=held))
+                walls.append((time.perf_counter() - t0) * 1000)
+                counts.append((launches, coll))
+            launches, coll = counts[-1]
+            check(all(c == counts[-1] for c in counts[1:]),
+                  f"mesh_ranks {job}: the timed solves' counts differ: "
+                  f"{counts[1:]}")
+            info = mesh.last_solve_info
+            check(info["routing"] == "cuda-sharded"
+                  and info["device_count"] == world,
+                  f"mesh_ranks {job}: routed {info['routing']} over "
+                  f"{info['device_count']}")
+            single, single_walls = TorchSolver(catalog, provs), []
+            for i in range(1 + MESH_TIMED):
+                t0 = time.perf_counter()
+                single_res = single.solve(list(pods),
+                                          existing=copy_existing(existing))
+                single_walls.append((time.perf_counter() - t0) * 1000)
+            check(np.array_equal(mesh.last_flat, single.last_flat),
+                  f"mesh_ranks {job}: the mesh's flat buffer differs from "
+                  f"the single card's")
+            check(res.decisions() == single_res.decisions(),
+                  f"mesh_ranks {job}: decisions differ")
+            row = {"steps": info["steps"], "bucket": info["bucket"],
+                   "nodes": len(res.nodes), "flat_bit_equal_card": True,
+                   "median_wall_ms": statistics.median(walls[1:]),
+                   "single_card_median_wall_ms":
+                       statistics.median(single_walls[1:]),
+                   "rowmax_launches_per_solve": launches.get(
+                       open_claim.ROWMAX_KERNEL, 0),
+                   "fill_launches_per_solve": launches.get(
+                       open_claim.KERNEL, 0),
+                   "all_reduces_per_solve": coll.get("all_reduce", 0),
+                   "broadcasts_per_solve": coll.get("broadcast", 0)}
+            check(row["rowmax_launches_per_solve"] == info["steps"]
+                  and row["fill_launches_per_solve"] == info["steps"],
+                  f"mesh_ranks {job}: {launches} over {info['steps']} "
+                  f"steps")
+            if job == "config4":
+                native = NativeSolver(catalog, provs).solve(list(pods))
+                check(res.decisions() == native.decisions(),
+                      "mesh_ranks config4: decisions differ from the native "
+                      "scan's")
+                row["native_equal"] = True
+            out[job] = row
+        elif job == "config3":
+            from karpenter_tpu_torch.providers.instancetypes import \
+                generate_fleet_catalog
+
+            catalog = generate_fleet_catalog()
+            cluster = config3_cluster(catalog)
+            prov = consolidation_provisioner()
+            one = consolidate.run_consolidation(cluster, catalog, [prov])
+            table = consolidate.last_verdict_table.copy()
+            t0 = time.perf_counter()
+            got, launches, coll = counted(
+                lambda: consolidate.run_consolidation(
+                    cluster, catalog, [prov], mesh=ctx.lane_mesh))
+            wall = (time.perf_counter() - t0) * 1000
+            check(np.array_equal(consolidate.last_verdict_table, table),
+                  "mesh_ranks config3: the lane mesh's verdict table "
+                  "differs from the one-shot sweep's")
+            check(action_key(got) == action_key(one),
+                  "mesh_ranks config3: actions differ")
+            out[job] = {"lanes": int(table.shape[0]), "action": got.kind,
+                        "verdicts_equal": True, "wall_ms": wall,
+                        "fill_launches_per_sweep": launches.get(
+                            open_claim.KERNEL, 0),
+                        "all_reduces_per_sweep": coll.get("all_reduce", 0),
+                        "broadcasts_per_sweep": coll.get("broadcast", 0)}
+    counted(ctx.close)
+    multihost.shutdown_distributed()
+    out.update(launches=dict(totals["launches"]),
+               collectives=dict(totals["collectives"]))
+    with open(f"{spec['out']}.0", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _spawn_mesh(world, jobs, label):
+    """Run one mesh_ranks group: -> every rank's result dict."""
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    base = os.path.join(RESULTS_DIR, f"mesh_{label}")
+    for suffix in [".store", ".json"] + [f".out.{r}" for r in range(world)]:
+        if os.path.exists(base + suffix):
+            os.remove(base + suffix)
+    with open(base + ".json", "w") as f:
+        json.dump({"world": world, "store": base + ".store", "jobs": jobs,
+                   "out": base + ".out"}, f)
+    logs = [open(f"{base}.log.{r}", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-rank", base + ".json", str(r)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        for r, proc in enumerate(procs):
+            rc = proc.wait(timeout=300)
+            if rc != 0:
+                logs[r].flush()
+                with open(f"{base}.log.{r}") as f:
+                    tail = f.read()[-3000:]
+                raise SmokeFailure(f"mesh_ranks {label}: rank {r} exited "
+                                   f"{rc}:\n{tail}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for r in range(world):
+        with open(f"{base}.out.{r}") as f:
+            out.append(json.load(f))
+    return out
+
+
+def run_serve_distributed(catalog, prov):
+    """solver-serve --distributed with 2 ranks sharing the card, launched
+    as torchrun launches them (WORLD_SIZE, RANK, LOCAL_RANK,
+    LOCAL_WORLD_SIZE; the rendezvous a FileStore under port_results/),
+    the shape router's crossover at 0: a Solve over gRPC is routed
+    cuda-sharded over 2 devices and decodes to the direct solve's
+    decisions; SIGINT stops rank 0, which stops rank 1, both exit 0."""
+    import signal
+
+    from karpenter_tpu_torch.solver import solver_pb2 as pb
+    from karpenter_tpu_torch.solver import wire
+    from karpenter_tpu_torch.solver.client import RemoteSolver
+    from karpenter_tpu_torch.solver.core import TorchSolver
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(RESULTS_DIR, "serve_distributed.store")
+    if os.path.exists(store):
+        os.remove(store)
+    port = free_port()
+    env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+               KARPENTER_TPU_SHARD_CROSSOVER_CELLS="0")
+    logs = [open(os.path.join(RESULTS_DIR, f"serve_distributed.log.{r}"),
+                 "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch", "solver-serve",
+         "--distributed", "--port", str(port), "--coordinator",
+         f"file://{store}"], cwd=root,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        pods = mixed_workload(1000)
+        client = RemoteSolver(catalog, [prov], target=f"127.0.0.1:{port}",
+                              timeout=120.0)
+        t0 = time.perf_counter()
+        while True:
+            check(all(p.poll() is None for p in procs),
+                  "serve_distributed: a rank exited before serving")
+            try:
+                client.sync()
+                break
+            except Exception:  # noqa: BLE001 — not serving yet
+                check(time.perf_counter() - t0 < 120,
+                      "serve_distributed: no Sync in 120 s")
+                time.sleep(0.5)
+        boot_s = time.perf_counter() - t0
+        resp = client._call("Solve", pb.SolveRequest(
+            catalog_seqnum=catalog.seqnum,
+            catalog_hash=client.catalog_content_hash(),
+            provisioner_hash=client._prov_hash,
+            pods=[wire.pod_to_wire(p) for p in pods]))
+        check(resp.routing == "cuda-sharded" and resp.device_count == 2,
+              f"serve_distributed: routed {resp.routing} over "
+              f"{resp.device_count}")
+        got = client._decode(resp, pods).decisions()
+        want = TorchSolver(catalog, [prov]).solve(list(pods)).decisions()
+        check(got == want, "serve_distributed: decisions differ from the "
+                           "direct solve")
+        procs[0].send_signal(signal.SIGINT)
+        rcs = [p.wait(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    with open(os.path.join(RESULTS_DIR, "serve_distributed.log.0")) as f:
+        desc = [line for line in f if line.startswith("distributed: ")]
+    check(rcs == [0, 0] and desc, f"serve_distributed: exit codes {rcs}")
+    return {"routing": resp.routing, "device_count": resp.device_count,
+            "boot_to_sync_s": boot_s, "solve_ms": resp.solve_ms,
+            "pods": len(pods), "decisions_equal": True,
+            "description": desc[0].strip()[len("distributed: "):]}
+
+
+def run_mesh_ranks(catalog, prov):
+    """mesh_ranks: separate processes share the card over gloo (parity,
+    not speed). A 2-rank mesh (nodes=1 x types=2) runs config 4 and config
+    3's lanes on its 2-rank lane mesh; a 4-rank mesh (2 x 2) runs config 4
+    and path B; then solver-serve --distributed with 2 ranks. Every rank
+    counts the same launches and collectives over the mesh runs. -> the
+    fill launches summed over every rank, by kernel, and rank 0's rows."""
+    import importlib.util
+
+    from karpenter_tpu_torch.ops import open_claim as oc
+
+    launches = collections.Counter()
+    rows = {}
+    for world, jobs in ((2, ["config4", "config3"]),
+                        (4, ["config4", "pathB"])):
+        t0 = time.perf_counter()
+        ranks = _spawn_mesh(world, jobs, f"{world}ranks")
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            launches.update(r["launches"])
+        per_rank = [r["launches"].get(oc.ROWMAX_KERNEL, 0) for r in ranks]
+        fill_per_rank = [r["launches"].get(oc.KERNEL, 0) for r in ranks]
+        check(min(per_rank) > 0, f"mesh_ranks {world}: a rank never "
+                                 f"launched the row-max mode")
+        head = ranks[0]
+        for r in ranks[1:]:
+            check(r["launches"] == head["launches"]
+                  and r["collectives"] == head["collectives"],
+                  f"mesh_ranks {world}: rank {r['rank']} counted "
+                  f"{r['launches']} {r['collectives']}, rank 0's mesh runs "
+                  f"{head['launches']} {head['collectives']}")
+        rows[world] = head
+        for job in jobs:
+            phase(f"mesh_ranks_{world}_{job}", label="ranks_sharing_one_card:"
+                  "_parity,_not_speed", world=world,
+                  **{k: (f"{v:.3f}" if isinstance(v, float) else v)
+                     for k, v in head[job].items()})
+        phase(f"mesh_ranks_{world}", ranks=world, group_seconds=f"{wall:.1f}",
+              rowmax_launches_per_rank=per_rank,
+              fill_launches_per_rank=fill_per_rank,
+              collectives_rank0=json.dumps(head["collectives"]).replace(
+                  " ", ""))
+    serve = {"skipped": "grpcio missing"}
+    if importlib.util.find_spec("grpc") is not None:
+        serve = run_serve_distributed(catalog, prov)
+    phase("mesh_ranks_serve_distributed",
+          **{k: (f"{v:.3f}" if isinstance(v, float) else
+                 str(v).replace(" ", "")) for k, v in serve.items()})
+    return {"launches": dict(launches), "rows": rows, "serve": serve}
+
+
+def run_slice(torch, LAUNCHES, TorchSolver) -> int:
+    """`--slice`: paths A and B, A's profile and the profiler and mesh
+    phases only, for a short check of the newest phases. Prints no result
+    line: only a run without arguments is the smoke."""
+    from karpenter_tpu_torch.providers.instancetypes import generate_fleet_catalog
+
+    catalog = generate_fleet_catalog()
+    prov = provisioner()
+    pods_a = mixed_workload(10_000)
+    info = {}
+    for label, pods, ex in (("pathA", pods_a, ()),
+                            ("pathB", mixed_5k_pods(),
+                             existing_nodes(catalog))):
+        solver = TorchSolver(catalog, [prov])
+        solver.solve(list(pods), existing=copy_existing(ex))
+        info[label] = solver.last_solve_info
+    prof_a = profile_solve(torch, "A", catalog, prov, pods_a, (), TorchSolver)
+    check(prof_a is not None, "profile A recorded no device events")
+    run_profiler(torch, catalog, prov, pods_a, prof_a["device_busy_ms"])
+    run_mesh_1(torch, catalog, prov, pods_a, info["pathA"], info["pathB"],
+               LAUNCHES)
+    run_mesh_ranks(catalog, prov)
+    phase("slice", ok=True)
+    return 0
+
+
+def main(argv=()) -> int:
+    quick = "--slice" in argv
     try:
         import torch
     except ImportError:
@@ -3972,6 +4709,8 @@ def main() -> int:
                   registers=f"{min(regs, default=0)}-{max(regs, default=0)}",
                   spilling_instantiations=spills)
 
+        if quick:
+            return run_slice(torch, LAUNCHES, TorchSolver)
         k1_rows, k1_err = run_k1(torch, quotient)
         oc_err = run_open_claim(torch, open_claim)
 
@@ -4066,7 +4805,8 @@ def main() -> int:
         # device memory, which paths A and B are timed without
         lanes_err = run_open_claim_lanes(torch, open_claim)
 
-        profile_solve(torch, "A", catalog, prov, pods_a, (), TorchSolver)
+        prof_a = profile_solve(torch, "A", catalog, prov, pods_a, (),
+                               TorchSolver)
         profile_solve(torch, "B", catalog, prov, pods_b, ex_b, TorchSolver)
         wave_solver = TorchSolver(catalog, [prov])
         profile_run(torch, "C", lambda: wave_solver.solve_many(problems_c))
@@ -4119,6 +4859,32 @@ def main() -> int:
             lane_case(torch, wave_c["lanes"], slots_c, 603, 6,
                       wave_c["res_width"], 1, False, False, seed=902)))
 
+        # the continuous profiler and the mesh: counts from 0 just before
+        # each mesh run and read just after (mesh_1's solve in this
+        # process; in mesh_ranks each run of rank 0, whose sum every
+        # follower's whole count equals, summed over the ranks)
+        check(prof_a is not None, "profile A recorded no device events")
+        run_profiler(torch, catalog, prov, pods_a, prof_a["device_busy_ms"])
+        mesh1 = run_mesh_1(torch, catalog, prov, pods_a, info_a, info_b,
+                           LAUNCHES)
+        ranks = run_mesh_ranks(catalog, prov)
+        RM = open_claim.ROWMAX_KERNEL
+        path_launches["mesh_1"] = {OC: mesh1["launches"][OC], K1: 0}
+        path_launches["mesh_ranks"] = {OC: ranks["launches"].get(OC, 0),
+                                       K1: ranks["launches"].get(K1, 0)}
+        rowmax_launches = {"mesh_1": mesh1["launches"][RM],
+                           "mesh_ranks": ranks["launches"].get(RM, 0)}
+
+        def per_rank(job, key):
+            """One rank's count in one mesh run of `job`, by rank count."""
+            return {f"{w}ranks": row[job][key]
+                    for w, row in ranks["rows"].items() if job in row}
+        for path in ("mesh_1", "mesh_ranks"):
+            check(path_launches[path][OC] > 0 and rowmax_launches[path] > 0,
+                  f"the split fill was never launched on {path}")
+            check(path_launches[path][K1] == 0,
+                  f"{path} launched the standalone K1")
+
         inflate_catalog = generate_fleet_catalog(max_types=20)
         from karpenter_tpu_torch.apis.provisioner import Provisioner
         from karpenter_tpu_torch.models.pod import make_pod
@@ -4167,6 +4933,13 @@ def main() -> int:
             "launches_chaos_sweep": chaos_row["sweep"],
             "launches_chaos_crash": chaos_row["crash"],
             "launches_chaos_spot_storm": storm_launches,
+            "launches_mesh_1_per_solve": mesh1["launches"][OC],
+            "launches_mesh_ranks_config4_per_solve_per_rank": per_rank(
+                "config4", "fill_launches_per_solve"),
+            "launches_mesh_ranks_pathB_per_solve_per_rank": per_rank(
+                "pathB", "fill_launches_per_solve"),
+            "launches_mesh_ranks_config3_per_sweep_per_rank": per_rank(
+                "config3", "fill_launches_per_sweep"),
             "max_abs_err": max(oc_err, lanes_err),
             "ms": oc_a["ms"],
             "plain_ms": oc_a["plain_ms"],
@@ -4175,6 +4948,25 @@ def main() -> int:
             "library_ms": None,
             "k1_sequence_ms": oc_a["k1_sequence_ms"],
             "shapes": oc_rows,
+        }, {
+            "name": "open_claim_rowmax",
+            "route": "cuda",
+            "source": "karpenter_tpu_torch/csrc/open_claim.cu",
+            "replaces": "karpenter_tpu/ops/pallas_kernels.py:101",
+            "launches": sum(rowmax_launches.values()),
+            "launches_by_path": rowmax_launches,
+            "launches_mesh_1_per_solve": mesh1["launches"][RM],
+            "launches_mesh_ranks_config4_per_solve_per_rank": per_rank(
+                "config4", "rowmax_launches_per_solve"),
+            "launches_mesh_ranks_pathB_per_solve_per_rank": per_rank(
+                "pathB", "rowmax_launches_per_solve"),
+            "max_abs_err": mesh1["max_abs_err"],
+            "ms": mesh1["rows"]["pathA"]["ms"],
+            "plain_ms": mesh1["rows"]["pathA"]["plain_ms"],
+            "bound_ms": mesh1["rows"]["pathA"]["bound_ms"],
+            "bound_by": mesh1["rows"]["pathA"]["bound_by"],
+            "library_ms": None,
+            "shapes": mesh1["rows"],
         }, {
             "name": "quotient_nt",
             "route": "cuda",
@@ -4217,4 +5009,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(sys.argv[2], int(sys.argv[3])))
+    sys.exit(main(sys.argv[1:]))

@@ -8,9 +8,12 @@ without a card and without --device cpu, boot raises. solver-serve,
 controller --solver and fleet-replica need grpcio; without it solver-serve
 and controller --solver exit 2 with a message naming it. solver-serve has
 one readback (`--readback get`, the .cpu() of the flat buffer); `callback`
-exits 2. solver-serve --distributed (the multi-host mesh) exits 2 naming
-ROADMAP item 9. chaos writes its artifact under port_results/chaos by
-default (git-ignored) and records nothing into a perf ledger.
+exits 2. solver-serve --distributed joins a torch.distributed process
+group, one process per rank as torchrun launches them
+(`torchrun --nproc-per-node=N python -m karpenter_tpu_torch solver-serve
+--distributed`): rank 0 serves and drives the mesh, the other ranks follow
+it. chaos writes its artifact under port_results/chaos by default
+(git-ignored) and records nothing into a perf ledger.
 
 Parity target: upstream cmd/controller/main.go:33-65 (operator boot)
 plus the new solver sidecar from SURVEY.md §7.1.
@@ -53,12 +56,6 @@ def _wait_for_signal() -> None:
         stop.wait(0.2)
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"{what} is not ported to karpenter_tpu_torch yet "
-          f"(ROADMAP item {item})", file=sys.stderr)
-    return 2
-
-
 def _needs_grpcio(what: str) -> "int | None":
     """2, with the message on stderr, when grpcio cannot be imported."""
     from .solver.wire import require_grpcio
@@ -72,9 +69,6 @@ def _needs_grpcio(what: str) -> "int | None":
 
 
 def cmd_solver_serve(args) -> int:
-    if args.distributed:
-        return _not_ported("solver-serve --distributed (the multi-host "
-                           "mesh)", "9")
     if args.readback == "callback":
         print("solver-serve --readback callback: karpenter_tpu_torch has no "
               "callback transport (its one readback is the .cpu() of the "
@@ -83,6 +77,26 @@ def cmd_solver_serve(args) -> int:
     rc = _needs_grpcio("solver-serve")
     if rc is not None:
         return rc
+    ctx = None
+    if args.distributed:
+        # one process per rank, as torchrun launches them: rank 0 serves
+        # gRPC and drives the mesh, the other ranks follow it
+        from .parallel.multihost import (initialize_distributed,
+                                         make_hybrid_mesh, mesh_description,
+                                         shutdown_distributed)
+        from .parallel.sharded import shared_context
+
+        multi = initialize_distributed(args.coordinator, args.num_processes,
+                                       args.process_id, device=args.device)
+        print(f"distributed: {mesh_description(make_hybrid_mesh())}"
+              if multi else "distributed requested but single-process",
+              flush=True)
+        if multi:
+            ctx = shared_context(args.device)
+            if not ctx.driving:
+                ctx.follow()
+                shutdown_distributed()
+                return 0
     from .solver.service import SolverService, serve
 
     service = SolverService(trace_dir=args.trace_dir or None,
@@ -95,6 +109,9 @@ def cmd_solver_serve(args) -> int:
         _wait_for_signal()
     finally:
         server.stop(grace=1.0)
+        if ctx is not None:
+            ctx.close()
+            shutdown_distributed()
     return 0
 
 
@@ -715,9 +732,11 @@ def main(argv=None) -> int:
     p_serve.add_argument("--port", type=int, default=50151)
     p_serve.add_argument("--workers", type=int, default=4)
     p_serve.add_argument("--distributed", action="store_true",
-                         help="join a multi-host mesh")
+                         help="join a torch.distributed mesh (launch one "
+                              "process per rank with torchrun)")
     p_serve.add_argument("--coordinator", default=None,
-                         help="coordinator address host:port (defaults from env)")
+                         help="coordinator address host:port or an init "
+                              "method URL (defaults from torchrun's env)")
     p_serve.add_argument("--num-processes", type=int, default=None)
     p_serve.add_argument("--process-id", type=int, default=None)
     p_serve.add_argument("--trace-dir", default="",

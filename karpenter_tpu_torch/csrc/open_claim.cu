@@ -78,10 +78,24 @@
 //     integer divide, min and max), and TMA or cp.async (a CTA reads a few
 //     KB, which plain coalesced loads bring in within one latency).
 //
+// The row-max mode, for the multi-rank mesh (karpenter_tpu_torch/parallel/
+// sharded.py), where each rank holds a slice of the slots and a slice of the
+// types. There launch 1 would run the waterfall on a partial row max (the max
+// over this rank's types only), so its row-max mode (open_claim_rowmax_launch)
+// stops after the row max: the lane's last CTA writes qmax[n] for this rank's
+// slots into the `m` buffer and zeroes its scratch row and ticket as launch 1
+// does. The caller all-reduces qmax over the ranks of the types axis; the
+// fill, the first-fit waterfall over every rank's slots, m, rem_out and the
+// `used` update then run as tensor code on [L, N_local] (they are a few
+// hundred integers a step, and the waterfall needs the other ranks' fills
+// first); launch 2 then runs unchanged on the new used and m. The
+// single-card path never takes this mode: it keeps its two launches a step.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (karpenter_tpu_torch/ops/_build.py).
-// C entry points: open_claim_qmax_launch, open_claim_apply_launch, bound with
-// ctypes (karpenter_tpu_torch/ops/open_claim.py).
+// C entry points: open_claim_qmax_launch, open_claim_rowmax_launch,
+// open_claim_apply_launch, bound with ctypes
+// (karpenter_tpu_torch/ops/open_claim.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -324,8 +338,21 @@ __device__ void waterfall(const Step& a, const int* vec_s) {
     }
 }
 
-// Launch 1: grid (T tiles, N, L), one CTA per (type tile, row, lane).
-template <int R>
+// The row-max mode's end of launch 1, run by a lane's last CTA: qmax[n] into
+// m[n] for each of the lane's N rows, and the scratch row and ticket zeroed.
+__device__ void rowmax_out(const Step& a) {
+    for (int n = threadIdx.x; n < a.N; n += TILE_T) {
+        a.m[n] = __ldcg(&a.ws[1 + n]) - 1;
+        a.ws[1 + n] = 0;
+    }
+    if (threadIdx.x == 0) {
+        a.ws[0] = 0;
+    }
+}
+
+// Launch 1: grid (T tiles, N, L), one CTA per (type tile, row, lane). With
+// ROWMAX it stops after the row max (the row-max mode above).
+template <int R, bool ROWMAX>
 __global__ void __launch_bounds__(TILE_T) open_claim_qmax_kernel(Step lanes) {
     const Step a = lane_view<R>(lanes, blockIdx.z);
     __shared__ int vec_s[R];
@@ -367,7 +394,11 @@ __global__ void __launch_bounds__(TILE_T) open_claim_qmax_kernel(Step lanes) {
         return;
     }
     __threadfence();
-    waterfall<R>(a, vec_s);
+    if (ROWMAX) {
+        rowmax_out(a);
+    } else {
+        waterfall<R>(a, vec_s);
+    }
 }
 
 // Launch 2: grid (T tiles, N, L). Shrinks the option mask of placed rows.
@@ -412,10 +443,10 @@ __global__ void __launch_bounds__(TILE_T) open_claim_apply_kernel(Step lanes) {
     shrink(a.optmask + o, plane + static_cast<long long>(t) * a.S, a.S, a.word, fit);
 }
 
-template <int R>
+template <int R, bool ROWMAX>
 cudaError_t launch_qmax(const Step& a, int L, cudaStream_t s) {
     const int tiles = (a.T + TILE_T - 1) / TILE_T;
-    open_claim_qmax_kernel<R><<<dim3(tiles, a.N, L), TILE_T, 0, s>>>(a);
+    open_claim_qmax_kernel<R, ROWMAX><<<dim3(tiles, a.N, L), TILE_T, 0, s>>>(a);
     return cudaGetLastError();
 }
 
@@ -465,7 +496,23 @@ extern "C" int open_claim_qmax_launch(KTP_STEP_ARGS, void* stream) {
     switch (R) {
 #define KTP_CASE(W) \
     case W:         \
-        return static_cast<int>(launch_qmax<W>(a, L, s));
+        return static_cast<int>(launch_qmax<W, false>(a, L, s));
+        KTP_WIDTHS(KTP_CASE)
+#undef KTP_CASE
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// Launch 1 in its row-max mode: writes qmax into `m`; rem, cap, og,
+// claim_placed and rem_out are not read or written.
+extern "C" int open_claim_rowmax_launch(KTP_STEP_ARGS, void* stream) {
+    const Step a = KTP_MAKE_STEP;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (R) {
+#define KTP_CASE(W) \
+    case W:         \
+        return static_cast<int>(launch_qmax<W, true>(a, L, s));
         KTP_WIDTHS(KTP_CASE)
 #undef KTP_CASE
         default:

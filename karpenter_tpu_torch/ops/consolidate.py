@@ -23,9 +23,10 @@ sweep_consolidation, which streams only when the one-shot pack would not
 fit in the device's free memory; with `record_last_chunk` its capture
 keeps only the lanes of the last stream_lanes() chunk, as the JAX rung's
 streamed sweep does, and without it every lane's, as the JAX one-shot
-sweep's does, whichever way it ran. Not ported: the sharded mesh
-dispatch (its own later slice). The timings of the last sweep are kept in
-`last_timings` on every run.
+sweep's does, whichever way it ran. With `mesh` (a lane mesh of
+parallel/sharded.py) the candidate lanes shard over the process group's
+ranks, as the JAX package's mesh sweep does. The timings of the last sweep
+are kept in `last_timings` on every run.
 """
 
 from __future__ import annotations
@@ -508,10 +509,27 @@ def _verdicts_flat(i32: torch.Tensor, u8: torch.Tensor, alloc_t: torch.Tensor,
 
 
 def _verdicts(batch: ConsolidationBatch, device: torch.device,
-              timings: "dict | None" = None) -> np.ndarray:
+              timings: "dict | None" = None, mesh=None) -> np.ndarray:
     """The sweep's device work for one batch: two uploads, the lane pack,
-    one read of the [C, 3] verdict table."""
+    one read of the [C, 3] verdict table; or, with a lane mesh, the
+    candidate lanes sharded over its ranks (pure data parallelism — see
+    parallel/sharded.py make_lane_mesh), whose uploads, packs, assembly
+    and read are one call, timed as its dispatch."""
     t0 = _time.perf_counter()
+    if mesh is not None:
+        from ..parallel.sharded import sharded_consolidation_verdicts
+
+        out = sharded_consolidation_verdicts(
+            batch.inputs, N_SLOTS, mesh, feas_table=batch.feas_table,
+            feas_idx=batch.feas_idx, device=device)
+        if timings is not None:
+            timings.update({
+                "flatten_ms": 0.0, "put_ms": 0.0,
+                "dispatch_ms": (_time.perf_counter() - t0) * 1000,
+                "fetch_ms": 0.0,
+                "steps": n_eff_of(batch.inputs.group_count),
+            })
+        return out
     i32, u8, dims = _flatten_batch(batch)
     n_eff = n_eff_of(batch.inputs.group_count)
     dev_alloc, dev_tb = _dev_grid_arrays(batch.grid, device)
@@ -577,6 +595,7 @@ def run_consolidation(
     multi_node: bool = True,
     max_pair_candidates: int = MAX_PAIR_CANDIDATES,
     candidate_filter=None,
+    mesh=None,
     cand_nodes: "Optional[Sequence[StateNode]]" = None,
     device: "str | torch.device | None" = None,
 ) -> Optional[ConsolidationAction]:
@@ -586,7 +605,9 @@ def run_consolidation(
     v0.24.0): MULTI-NODE pairs decide before single-node — a bigger win
     shadows a smaller one. Pair lanes and single lanes ride ONE lane pack
     and one read; mechanism precedence is applied to the decoded verdicts.
-    `cand_nodes` reuses an eligibility sweep already done."""
+    `cand_nodes` reuses an eligibility sweep already done; with `mesh` (a
+    lane mesh, parallel/sharded.make_lane_mesh) the lanes shard over its
+    ranks."""
     device = resolve_device(device)
     t0 = _time.perf_counter()
     sets = _candidate_sets(cluster, provisioners, now, multi_node,
@@ -594,11 +615,11 @@ def run_consolidation(
     if sets is None:
         return None
     return _one_shot(cluster, catalog, provisioners, daemon_overhead, now,
-                     grid, sets, device, t0, {})
+                     grid, sets, device, t0, {}, mesh=mesh)
 
 
 def _one_shot(cluster, catalog, provisioners, daemon_overhead, now, grid,
-              sets, device, t0, timings):
+              sets, device, t0, timings, mesh=None):
     """run_consolidation from its candidate sets on: one C-lane encode, one
     lane pack, one decode. `timings` starts the sweep's timings dict."""
     global last_timings, last_verdict_table
@@ -607,7 +628,7 @@ def _one_shot(cluster, catalog, provisioners, daemon_overhead, now, grid,
     if batch is None:
         return None
     t1 = _time.perf_counter()
-    verdicts = _verdicts(batch, device, timings=timings)
+    verdicts = _verdicts(batch, device, timings=timings, mesh=mesh)
     t2 = _time.perf_counter()
     actions = _decode_actions(batch, verdicts, now)
     timings["encode_ms"] = (t1 - t0) * 1000
@@ -669,6 +690,7 @@ def stream_consolidation(
     multi_node: bool = True,
     max_pair_candidates: int = MAX_PAIR_CANDIDATES,
     candidate_filter=None,
+    mesh=None,
     cand_nodes: "Optional[Sequence[StateNode]]" = None,
     batch_lanes: "Optional[int]" = None,
     device: "str | torch.device | None" = None,
@@ -688,11 +710,12 @@ def stream_consolidation(
         return None
     width = batch_lanes if batch_lanes is not None else stream_lanes()
     return _streamed(cluster, catalog, provisioners, daemon_overhead, now,
-                     grid, sets, width, device, t0, {})
+                     grid, sets, width, device, t0, {}, mesh=mesh)
 
 
 def _streamed(cluster, catalog, provisioners, daemon_overhead, now, grid,
-              sets, width, device, t0, timings, record_every_chunk=False):
+              sets, width, device, t0, timings, record_every_chunk=False,
+              mesh=None):
     """stream_consolidation from its candidate sets on, in chunks of
     `width` lanes. `timings` starts the sweep's timings dict. With
     `record_every_chunk`, `last_verdicts` gathers every chunk's verdicts,
@@ -743,7 +766,8 @@ def _streamed(cluster, catalog, provisioners, daemon_overhead, now, grid,
                 alloc_t=pruned.alloc_t, tiebreak=pruned.tiebreak)
             batch.grid = pruned
         chunk_timings: dict = {}
-        verdicts = _verdicts(batch, device, timings=chunk_timings)
+        verdicts = _verdicts(batch, device, timings=chunk_timings,
+                             mesh=mesh)
         steps += chunk_timings["steps"]
         tc2 = _time.perf_counter()
         # decode walks batch.candidates by lane index: truncating to the

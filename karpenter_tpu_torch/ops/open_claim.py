@@ -34,12 +34,18 @@ karpenter_tpu/ops/packer.py::_step (:245-279), with vmap's batch axis.
   note in csrc/open_claim.cu says what the design does about it.
 - `OpenClaimFill` is the same wrapper for the steps of one pack: it checks
   the operands and builds the constant launch arguments at its first call,
-  so each later step pays only its pointers and the two launches.
+  so each later step pays only its pointers and the two launches. Its
+  `rowmax` and `apply` are the multi-rank mesh's split of a step
+  (parallel/sharded.py): launch 1 in its row-max mode (counted as
+  ROWMAX_KERNEL), the caller's reduction, fill, waterfall and used update,
+  then launch 2. The single card never splits.
 - `open_claim_fill_reference` is the plain PyTorch version: the step-2
   tensor code the packer ran before the redesign, with a leading lane axis
   and K1's plain version as its quotient. It returns new tensors and
   changes nothing. The CPU path and the tests use it; chip_smoke.py holds
-  the kernel to it on the card, bit for bit.
+  the kernel to it on the card, bit for bit. It is composed of the split's
+  plain halves (open_claim_rowmax_reference, claim_fill, _waterfall,
+  placed_used, open_claim_apply_reference), which the CPU mesh runs.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ..device import LAUNCHES
 from .quotient import INT_BIG, MAX_WIDTH, _pods_cap_quotient, _quotient
 
 KERNEL = "open_claim_fill"
+ROWMAX_KERNEL = "open_claim_rowmax"  # launch 1's row-max mode (the mesh)
 MAX_SLOTS = 65535  # the CUDA grid's y limit: one row of CTAs per slot
 MAX_LANES = 65535  # the CUDA grid's z limit: one plane of CTAs per lane
 
@@ -79,13 +86,13 @@ def lane_quotient(alloc_t: torch.Tensor, used: torch.Tensor,
                      vec[:, None, None, :])
 
 
-def open_claim_fill_reference(alloc_t, vec, cap, feas, og, claim_placed,
-                              prov_pods_cap, pods_i, used, optmask, nprov,
-                              active, rem, quotient=lane_quotient):
-    """Plain PyTorch version (any device), lane by lane: -> (m [L, N],
-    optmask, used, rem [L]), all new tensors. `quotient` computes
-    q [L, N, T] from (alloc_t, used, vec); only chip_smoke.py passes another
-    one (K1's kernel, to time the sequence the redesign replaced)."""
+def open_claim_rowmax_reference(alloc_t, vec, feas, prov_pods_cap, pods_i,
+                                used, optmask, nprov, active,
+                                quotient=lane_quotient):
+    """The plain version of the fill's first half, up to the row max, lane
+    by lane: -> (qmax [L, N], q [L, N, T], nodefeas [L, N, T, S]), all new
+    tensors. The mesh's row-max mode: each rank's qmax is over its own
+    types, and the ranks of the types axis reduce it by max."""
     lane = torch.arange(used.shape[0], device=used.device)
     nprov0 = torch.clamp(nprov, min=0)                               # [L, N]
     feas_n = feas[:, 0][:, None] if feas.shape[1] == 1 \
@@ -100,14 +107,46 @@ def open_claim_fill_reference(alloc_t, vec, cap, feas, og, claim_placed,
         q_nt = torch.minimum(q_nt, q_extra)
     feas_t = nodefeas.any(dim=-1)                                    # [L, N, T]
     qmax = torch.where(feas_t, q_nt, -1).amax(dim=-1)                # [L, N]
+    return qmax, q_nt, nodefeas
+
+
+def claim_fill(qmax, cap, og, claim_placed):
+    """fill[n] = clip(min(qmax[n], cap - claim_placed[og, n]), 0, INT_BIG)
+    per lane: the slots' capacity for this group, the waterfall's input."""
+    lane = torch.arange(qmax.shape[0], device=qmax.device)
     cap_n = cap[:, None] - claim_placed[lane, og]                    # [L, N]
-    fill_n = torch.clamp(torch.minimum(qmax, cap_n), 0, INT_BIG)
-    m_n = _waterfall(rem, fill_n)                                    # [L, N]
+    return torch.clamp(torch.minimum(qmax, cap_n), 0, INT_BIG)
+
+
+def placed_used(used, vec, m_n):
+    """used after placing m_n [L, N] pods of demand vec in each slot (the
+    rows with m = 0 unchanged)."""
     new_used = used + m_n[:, :, None] * vec[:, None, :]
+    return torch.where((m_n > 0)[:, :, None], new_used, used)
+
+
+def open_claim_apply_reference(q_nt, nodefeas, m_n, optmask):
+    """The plain version of launch 2: the option mask after placing m_n,
+    from the first half's q and nodefeas (taken before `used` moved)."""
     shrunk = nodefeas & (q_nt >= m_n[:, :, None])[:, :, :, None]
-    placed = m_n > 0
-    optmask = torch.where(placed[:, :, None, None], shrunk, optmask)
-    used = torch.where(placed[:, :, None], new_used, used)
+    return torch.where((m_n > 0)[:, :, None, None], shrunk, optmask)
+
+
+def open_claim_fill_reference(alloc_t, vec, cap, feas, og, claim_placed,
+                              prov_pods_cap, pods_i, used, optmask, nprov,
+                              active, rem, quotient=lane_quotient):
+    """Plain PyTorch version (any device), lane by lane: -> (m [L, N],
+    optmask, used, rem [L]), all new tensors. `quotient` computes
+    q [L, N, T] from (alloc_t, used, vec); only chip_smoke.py passes another
+    one (K1's kernel, to time the sequence the redesign replaced). It is
+    the row max, the fill, the waterfall, the used update and the mask
+    shrink in turn, the same functions the mesh's split runs."""
+    qmax, q_nt, nodefeas = open_claim_rowmax_reference(
+        alloc_t, vec, feas, prov_pods_cap, pods_i, used, optmask, nprov,
+        active, quotient)
+    m_n = _waterfall(rem, claim_fill(qmax, cap, og, claim_placed))  # [L, N]
+    optmask = open_claim_apply_reference(q_nt, nodefeas, m_n, optmask)
+    used = placed_used(used, vec, m_n)
     rem = rem - m_n.sum(dim=-1, dtype=_I32)
     return m_n, optmask, used, rem
 
@@ -191,7 +230,8 @@ def _launchers():
         lib = _build.load("open_claim")
         args = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-        _fns = (lib.open_claim_qmax_launch, lib.open_claim_apply_launch)
+        _fns = (lib.open_claim_qmax_launch, lib.open_claim_apply_launch,
+                lib.open_claim_rowmax_launch)
         for fn in _fns:
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -222,6 +262,15 @@ def launch_qmax(args: tuple) -> None:
         raise RuntimeError(f"open_claim_fill: launch 1 failed with CUDA "
                            f"error {err}")
     LAUNCHES.add(KERNEL)
+
+
+def launch_rowmax(args: tuple) -> None:
+    """Launch 1 in its row-max mode (the mesh's split): qmax into `m`."""
+    err = _launchers()[2](*args)
+    if err != 0:
+        raise RuntimeError(f"open_claim_fill: launch 1 (row-max mode) "
+                           f"failed with CUDA error {err}")
+    LAUNCHES.add(ROWMAX_KERNEL)
 
 
 def launch_apply(args: tuple) -> None:
@@ -255,6 +304,7 @@ class OpenClaimFill:
         self.pods_i = pods_i
         self.workspace = workspace
         self._tail = None   # the constant launch arguments; () on the CPU
+        self._split = None  # the CPU split's (q, nodefeas) between halves
 
     def _prepare(self, vec, cap, feas, og, claim_placed, used, optmask,
                  nprov, active, rem) -> None:
@@ -346,6 +396,57 @@ class OpenClaimFill:
         launch_qmax(args)
         launch_apply(args)
         return m, rem_out
+
+
+    def rowmax(self, vec, cap, feas, og, claim_placed, used, optmask, nprov,
+               active, rem) -> torch.Tensor:
+        """The mesh's first half of a step: -> qmax [L, N] over this rank's
+        types (launch 1 in its row-max mode on CUDA; on the CPU the plain
+        version, whose q and nodefeas the next `apply` reuses). The caller
+        reduces qmax over the types axis, runs the fill and the waterfall
+        (claim_fill, _waterfall), moves `used` in place (placed_used), then
+        calls apply."""
+        if self._tail is None:
+            self._prepare(vec, cap, feas, og, claim_placed, used, optmask,
+                          nprov, active, rem)
+        if not self._tail:
+            qmax, q_nt, nodefeas = open_claim_rowmax_reference(
+                self.alloc_t, vec, feas, self.prov_pods_cap, self.pods_i,
+                used, optmask, nprov, active)
+            self._split = (q_nt, nodefeas)
+            return qmax
+        if torch.cuda.current_device() != self._device:
+            with torch.cuda.device(self._device):
+                return self.rowmax(vec, cap, feas, og, claim_placed, used,
+                                   optmask, nprov, active, rem)
+        qmax = torch.empty(self._sizes[0], dtype=_I32, device=used.device)
+        # rem_out: the row-max mode neither reads nor writes it
+        launch_rowmax(self.args(vec, cap, feas, og, claim_placed, used,
+                                optmask, nprov, active, rem, qmax, rem))
+        return qmax
+
+    def apply(self, vec, cap, feas, og, claim_placed, used, optmask, nprov,
+              active, rem, m) -> None:
+        """The mesh's second half of a step: shrinks `optmask` in place for
+        the slots placed by m [L, N] (contiguous int32), after the caller
+        moved `used` by m (launch 2, unchanged, on CUDA)."""
+        if not self._tail:
+            q_nt, nodefeas = self._split
+            self._split = None
+            optmask.copy_(open_claim_apply_reference(q_nt, nodefeas, m,
+                                                     optmask))
+            return
+        if torch.cuda.current_device() != self._device:
+            with torch.cuda.device(self._device):
+                return self.apply(vec, cap, feas, og, claim_placed, used,
+                                  optmask, nprov, active, rem, m)
+        if m.shape != self._sizes[0] or m.dtype != _I32 \
+                or not m.is_contiguous():
+            raise ValueError("open_claim_fill: m must be a contiguous int32 "
+                             f"{tuple(self._sizes[0])}")
+        # rem_out: launch 2 neither reads nor writes it
+        launch_apply(self.args(vec, cap, feas, og, claim_placed, used,
+                               optmask, nprov, active, rem, m, rem))
 
 
 def cuda_args(alloc_t, vec, cap, feas, og, claim_placed, prov_pods_cap,

@@ -34,6 +34,13 @@ idiom changes:
   step; every read of a row happens before the row's update, as in the JAX
   step. Every sum names dtype=torch.int32: torch would promote an int32 sum
   to int64, and JAX keeps int32.
+* The same step runs on one rank of a multi-rank mesh
+  (parallel/sharded.py), given the mesh: the state then holds the rank's
+  node slice and the inputs its type slice. Step 2 splits around two
+  collectives (the row max over the types axis, the fill over the nodes
+  axis), step 3 reduces kstar over the types axis, and the end takes the
+  first minimum over every rank's types and gathers the node slices.
+  Without a mesh none of this runs, and a step keeps its two launches.
 
 Layout of one problem's flat buffer (flatten_result gives one per lane):
     [assign (G*N) | ex_assign (G*Ne) | unsched (G) | active (N) |
@@ -48,11 +55,17 @@ import numpy as np
 import torch
 
 from ..apis import wellknown as wk
-from .open_claim import OpenClaimFill, _waterfall, open_claim_workspace
+from .open_claim import (OpenClaimFill, _waterfall, claim_fill,
+                         open_claim_workspace, placed_used)
 from .quotient import INT_BIG, _pods_cap_quotient, _quotient, type_major
 
 _PODS_I = wk.RESOURCE_INDEX[wk.RESOURCE_PODS]
 _I32 = torch.int32
+_LOW32 = (1 << 32) - 1
+
+# the axes of a pack mesh (parallel/sharded.py): node-claim slots, types
+AXIS_NODES = "nodes"
+AXIS_TYPES = "types"
 
 
 class PackInputs(NamedTuple):
@@ -219,13 +232,15 @@ class _Loop(NamedTuple):
     origin_flat: torch.Tensor  # i64 [G, L] its row in the [L*G, ...] views
     newprov: torch.Tensor     # i64 [G, L] group_newprov, as an index
     lane_idx: torch.Tensor    # i64 [L]
-    slot_idx: torch.Tensor    # i32 [N]
+    slot_idx: torch.Tensor    # i32 [N] every slot, a mesh rank's included
     pods_i: int               # pods column in the (compressed) layout
     fill: OpenClaimFill       # step 2, with its scratch on CUDA
 
 
-def _make_loop(inputs: PackInputs, n_slots: int) -> _Loop:
-    """The per-pack constants of pack_lanes's step loop."""
+def _make_loop(inputs: PackInputs, n_slots: int,
+               n_local: Optional[int] = None) -> _Loop:
+    """The per-pack constants of pack_lanes's step loop; `n_local` is the
+    slots a mesh rank holds (all n_slots without a mesh)."""
     dev = inputs.group_vec.device
     L, G = inputs.group_count.shape
     alloc_t = inputs.alloc_t
@@ -254,22 +269,49 @@ def _make_loop(inputs: PackInputs, n_slots: int) -> _Loop:
         pods_i=pods_i,
         fill=OpenClaimFill(
             _type_major(alloc_t), inputs.prov_pods_cap, pods_i,
-            open_claim_workspace(n_slots, dev, L)
+            open_claim_workspace(n_slots if n_local is None else n_local,
+                                 dev, L)
             if dev.type == "cuda" else None))
 
 
-def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
-    """Pack step g in every lane: -> (new state, (assign row [L, N],
-    ex_assign row [L, Ne], unsched [L]))."""
+def _split_fill(loop: _Loop, args: tuple, mesh, n0: int, N: int):
+    """Step 2 on a mesh rank, whose slots are [n0, n0 + N_local) of N:
+    launch 1 in its row-max mode, then (i) the row max over the types
+    axis; the fill into a zeroed row of every slot, then (ii) its sum over
+    the nodes axis, so each rank runs the single card's waterfall on the
+    whole row (summing only each rank's fill total would give the prefix,
+    but not the pods placed, whose int32 sum wraps slot by slot); the used
+    update, then launch 2. -> (m [L, N_local], rem after [L])."""
+    vec, cap, _, og, claim_placed, used, _, _, _, rem = args
+    qmax = loop.fill.rowmax(*args)                                   # [L, Nl]
+    mesh.all_reduce(qmax, "max", AXIS_TYPES)
+    L, Nl = qmax.shape
+    fill = torch.zeros((L, N), dtype=_I32, device=qmax.device)
+    fill[:, n0:n0 + Nl] = claim_fill(qmax, cap, og, claim_placed)
+    mesh.all_reduce(fill, "sum", AXIS_NODES)
+    m_all = _waterfall(rem, fill)                                    # [L, N]
+    m_n = m_all[:, n0:n0 + Nl].contiguous()
+    used.copy_(placed_used(used, vec, m_n))
+    loop.fill.apply(*args, m_n)
+    return m_n, rem - m_all.sum(dim=-1, dtype=_I32)
+
+
+def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int,
+          mesh=None, n0: int = 0):
+    """Pack step g in every lane: -> (new state, (assign row [L, N_local],
+    ex_assign row [L, Ne], unsched [L])). On a mesh rank the state holds
+    slots [n0, n0 + N_local) and the inputs the rank's type slice; without
+    a mesh N_local is every slot and n0 is 0."""
     vec = inputs.group_vec[:, g]       # [L, R]
     cap = inputs.group_cap[:, g]       # [L]
     count = inputs.group_count[:, g]   # [L]
     og = loop.origin[g]                # [L] origin row of this group
     ogf = loop.origin_flat[g]          # [L] its row in the [L*G, ...] views
     L, G, Ne = state.ex_placed.shape
-    N = state.active.shape[1]
+    Nl = state.active.shape[1]
+    N = loop.slot_idx.shape[0]
 
-    # ---- 1) existing nodes ---------------------------------------------------
+    # ---- 1) existing nodes (replicated on every mesh rank) -------------------
     q_ex = _quotient(inputs.ex_alloc - state.ex_used, vec[:, None, :])  # [L, Ne]
     cap_ex = cap[:, None] if inputs.ex_cap is None else inputs.ex_cap[:, g]
     ex_placed = state.ex_placed.view(L * G, Ne)
@@ -284,8 +326,12 @@ def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
     # ---- 2) open claims, first-fit in creation order -------------------------
     gf = inputs.group_feas[:, g]                                     # [L, Pv, T, S]
     used, optmask = state.used, state.optmask      # updated in place below
-    m_n, rem = loop.fill(vec, cap, gf, og, state.claim_placed, used, optmask,
-                         state.nprov, state.active, rem)             # [L, N], [L]
+    args = (vec, cap, gf, og, state.claim_placed, used, optmask, state.nprov,
+            state.active, rem)
+    if mesh is None:
+        m_n, rem = loop.fill(*args)                                  # [L, N], [L]
+    else:
+        m_n, rem = _split_fill(loop, args, mesh, n0, N)              # [L, Nl], [L]
 
     # ---- 3) bulk-open fresh nodes --------------------------------------------
     pods_i = loop.pods_i
@@ -302,6 +348,8 @@ def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
         q0 = torch.minimum(q0, _pods_cap_quotient(
             cap_t - ovh[:, pods_i:pods_i + 1], vec[:, pods_i:pods_i + 1]))
     kstar = torch.where(freshfeas, q0[:, :, None], 0).amax(dim=(1, 2))  # [L]
+    if mesh is not None:
+        mesh.all_reduce(kstar, "max", AXIS_TYPES)                    # (iii)
     kstar = torch.clamp(torch.minimum(kstar, cap), 0, INT_BIG)
     n_new = torch.where(
         kstar > 0,
@@ -314,10 +362,12 @@ def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
 
     idx = loop.slot_idx                                              # [N]
     n_open = state.n_open[:, None]
-    in_range = (idx >= n_open) & (idx < n_open + n_new[:, None])     # [L, N]
-    cnt = torch.where(idx == n_open + n_new[:, None] - 1, last_cnt[:, None],
-                      kstar[:, None])
-    cnt = torch.where(in_range, cnt, 0)                              # [L, N]
+    in_all = (idx >= n_open) & (idx < n_open + n_new[:, None])       # [L, N]
+    cnt_all = torch.where(idx == n_open + n_new[:, None] - 1,
+                          last_cnt[:, None], kstar[:, None])
+    cnt_all = torch.where(in_all, cnt_all, 0)                        # [L, N]
+    in_range = in_all[:, n0:n0 + Nl]                                 # [L, Nl]
+    cnt = cnt_all[:, n0:n0 + Nl]
     fresh_used = ovh[:, None, :] + cnt[:, :, None] * vec[:, None, :]
     used = torch.where(in_range[:, :, None], fresh_used, used)
     fresh_mask = freshfeas[:, None] & (q0[:, None, :]
@@ -326,56 +376,92 @@ def _step(inputs: PackInputs, loop: _Loop, state: PackState, g: int):
     active = state.active | in_range
     nprov = torch.where(in_range, p[:, None], state.nprov)
     n_open = state.n_open + n_new
-    unsched = rem - cnt.sum(dim=-1, dtype=_I32)
+    unsched = rem - cnt_all.sum(dim=-1, dtype=_I32)
 
     row_n = m_n + cnt
-    state.claim_placed.view(L * G, N).index_add_(0, ogf, row_n)
+    state.claim_placed.view(L * G, Nl).index_add_(0, ogf, row_n)
     new_state = PackState(used, optmask, nprov, active, n_open, ex_used,
                           state.ex_placed, state.claim_placed)
     return new_state, (row_n, m_ex, unsched)
 
 
-def pack_lanes(inputs: PackInputs, n_slots: int, n_eff: int) -> PackResult:
+def pack_lanes(inputs: PackInputs, n_slots: int, n_eff: int,
+               mesh=None) -> PackResult:
     """Run the pack of L problems (leading lane axis on every leaf) over
     groups [0, n_eff): -> PackResult with a leading lane axis. Rows past
     n_eff must hold no pods in any lane (n_eff_of computes it from the host
-    group counts)."""
+    group counts). On a rank of a pack mesh (parallel/sharded.py) `inputs`
+    hold the rank's type slice, and the whole result comes back on every
+    rank."""
     dev = inputs.group_vec.device
     L, G, R = inputs.group_vec.shape
     T, S = inputs.tiebreak.shape[1:]
     Ne = inputs.ex_alloc.shape[1]
-    loop = _make_loop(inputs, n_slots)
+    n0, n1 = (0, n_slots) if mesh is None else mesh.node_bounds(n_slots)
+    Nl = n1 - n0
+    loop = _make_loop(inputs, n_slots, Nl)
     state = PackState(
-        used=torch.zeros((L, n_slots, R), dtype=_I32, device=dev),
-        optmask=torch.zeros((L, n_slots, T, S), dtype=torch.bool, device=dev),
-        nprov=torch.full((L, n_slots), -1, dtype=_I32, device=dev),
-        active=torch.zeros((L, n_slots), dtype=torch.bool, device=dev),
+        used=torch.zeros((L, Nl, R), dtype=_I32, device=dev),
+        optmask=torch.zeros((L, Nl, T, S), dtype=torch.bool, device=dev),
+        nprov=torch.full((L, Nl), -1, dtype=_I32, device=dev),
+        active=torch.zeros((L, Nl), dtype=torch.bool, device=dev),
         n_open=torch.zeros((L,), dtype=_I32, device=dev),
         ex_used=inputs.ex_used,
         ex_placed=torch.zeros((L, G, Ne), dtype=_I32, device=dev),
-        claim_placed=torch.zeros((L, G, n_slots), dtype=_I32, device=dev),
+        claim_placed=torch.zeros((L, G, Nl), dtype=_I32, device=dev),
     )
     assign = torch.zeros((L, G, n_slots), dtype=_I32, device=dev)
     ex_assign = torch.zeros((L, G, Ne), dtype=_I32, device=dev)
     unsched = torch.zeros((L, G), dtype=_I32, device=dev)
     for g in range(n_eff):
-        state, (row_n, row_ex, row_us) = _step(inputs, loop, state, g)
-        assign[:, g] = row_n
+        state, (row_n, row_ex, row_us) = _step(inputs, loop, state, g, mesh,
+                                               n0)
+        assign[:, g, n0:n1] = row_n
         ex_assign[:, g] = row_ex
         unsched[:, g] = row_us
 
     # decision: cheapest surviving option per active claim
     rank = torch.where(state.optmask, inputs.tiebreak[:, None], INT_BIG)
-    flatrank = rank.reshape(L, n_slots, -1)
-    best = torch.argmin(flatrank, dim=-1).to(_I32)  # first minimum on ties
-    has_opt = flatrank.amin(dim=-1) < INT_BIG
-    decided = torch.where(state.active & has_opt, best, -1)
+    flatrank = rank.reshape(L, Nl, -1)
+    best = torch.argmin(flatrank, dim=-1)  # first minimum on ties
+    low = flatrank.amin(dim=-1)
+    if mesh is not None:
+        # the first minimum over every rank's types: (tiebreak, global flat
+        # id) as one int64 key (tiebreak lies in [0, INT_BIG], so the key
+        # orders exactly as argmin's first minimum on ties)
+        key = (low.long() << 32) | (best + mesh.index(AXIS_TYPES) * T * S)
+        mesh.all_reduce(key, "min", AXIS_TYPES)
+        low, best = key >> 32, key & _LOW32
+    decided = torch.where(state.active & (low < INT_BIG), best.to(_I32), -1)
 
-    return PackResult(
+    r = PackResult(
         assign=assign, ex_assign=ex_assign, unsched=unsched,
         used=state.used, active=state.active, nprov=state.nprov,
         decided=decided, n_open=state.n_open,
     )
+    return r if mesh is None else _gather_slots(r, n_slots, n0, mesh)
+
+
+def _gather_slots(r: PackResult, n_slots: int, n0: int, mesh) -> PackResult:
+    """A mesh rank's result with the node-sliced fields (and assign, whose
+    other slots are zero) summed over the nodes axis into zeroed full-size
+    rows, in one all_reduce: the whole result on every rank."""
+    L, G, _ = r.assign.shape
+    Nl, R = r.used.shape[1:]
+    parts = (r.active.to(_I32), r.nprov, r.decided, r.used.reshape(L, -1))
+    full = torch.zeros((L, len(parts), n_slots * R), dtype=_I32,
+                       device=r.assign.device)
+    for k, v in enumerate(parts):
+        width = v.shape[1] // Nl if Nl else 1
+        full[:, k, n0 * width:(n0 + Nl) * width] = v
+    buf = torch.cat([r.assign.reshape(L, -1), full.reshape(L, -1)], dim=1)
+    mesh.all_reduce(buf, "sum", AXIS_NODES)
+    full = buf[:, G * n_slots:].reshape(L, len(parts), n_slots * R)
+    return r._replace(
+        assign=buf[:, :G * n_slots].reshape(L, G, n_slots),
+        active=full[:, 0, :n_slots] != 0, nprov=full[:, 1, :n_slots],
+        decided=full[:, 2, :n_slots],
+        used=full[:, 3].reshape(L, n_slots, R))
 
 
 def flatten_result(r: PackResult) -> torch.Tensor:

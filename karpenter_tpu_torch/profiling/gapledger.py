@@ -2,8 +2,10 @@
 
 Copy of karpenter_tpu/profiling/gapledger.py for the PyTorch port, which
 imports nothing of the JAX package; tests/test_torch_copies.py holds it to
-the original. The port has no continuous profiler yet, so a solve scope
-starts no host sampler and a row feeds no device-event ring.
+the original's names and bounds the edit. On the CUDA card a row's
+device-event time is the CUDA-event span the solver files
+(note_device_event); without one, the row's device_exec phase, as in the
+JAX package.
 
 The motivating gap: the recorded device trace
 shows device-exec at 0.644 ms/run while the on-chip headline was
@@ -94,7 +96,8 @@ def _ring_cap() -> int:
 
 
 class _Record:
-    __slots__ = ("phases", "attrs", "intervals", "waits", "wall0", "perf0")
+    __slots__ = ("phases", "attrs", "intervals", "waits", "wall0", "perf0",
+                 "device_event_s")
 
     def __init__(self):
         self.phases: "dict[str, float]" = {}
@@ -107,6 +110,8 @@ class _Record:
         self.waits: "list[tuple[str, str, float]]" = []
         self.wall0 = time.time()
         self.perf0 = time.perf_counter()
+        # CUDA-event seconds of the record's device work (note_device_event)
+        self.device_event_s: "float | None" = None
 
 
 class GapLedger:
@@ -132,6 +137,11 @@ class GapLedger:
         if cur is not None:
             yield cur
             return
+        # the always-on part of "always-on": the first profiled solve lazily
+        # starts the host sampler (idempotent; refuses while disabled)
+        from . import PROFILER
+
+        PROFILER.ensure_started()
         rec = _Record()
         self._tls.rec = rec
         t0 = time.perf_counter()
@@ -195,6 +205,16 @@ class GapLedger:
         rec.waits.append((kind, lane, max(0.0, seconds)))
         critical.CRITICAL.count_wait_note()
 
+    def note_device_event(self, seconds: "float | None") -> None:
+        """Add a CUDA-event span's seconds (continuous.CudaEventSpan) to
+        the open record's device-event time, which the device ladder
+        records in place of the device_exec phase. No-op for None, without
+        an open scope or while the plane is disabled."""
+        rec = getattr(self._tls, "rec", None)
+        if seconds is None or rec is None or not state.enabled():
+            return
+        rec.device_event_s = (rec.device_event_s or 0.0) + max(0.0, seconds)
+
     def annotate(self, **attrs) -> None:
         """Attach rung/route metadata to the open record (bucket label,
         rung dims for the roofline, routing, device_count)."""
@@ -248,6 +268,16 @@ class GapLedger:
                           "overlap_ratio", "critical_share", "waits_ms",
                           "on_critical_path_ms", "off_critical_path_ms")
             }
+        if device_ms > 0:
+            from .continuous import PROFILER
+            if rec.device_event_s is None:
+                seconds, mode = device_ms / 1e3, "cpu-synthetic"
+            else:
+                seconds, mode = rec.device_event_s, "cuda-events"
+            PROFILER.device.observe(
+                seconds,
+                bucket=str(rec.attrs.get("bucket", "")),
+                route=str(rec.attrs.get("route", "single")), mode=mode)
         with self._lock:
             self._rows.append(row)
             self.rows_total += 1

@@ -246,6 +246,8 @@ def measured_snapshot() -> dict:
     with _measured_lock:
         rungs = {k: dict(v) for k, v in _measured.items()}
     return {
+        # XLA's cost_analysis() has no torch counterpart: no rung records
+        "source": "unavailable on this backend (no compiler cost analysis)",
         "drift_threshold": DRIFT_THRESHOLD,
         "rungs": rungs,
         "drift_flagged": sorted(k for k, v in rungs.items()

@@ -2,9 +2,7 @@
 
 Copy of karpenter_tpu/serving.py for the PyTorch port, which imports nothing
 of the JAX package, edited; tests/test_torch_copies.py holds it to the
-original's names and bounds the edit. /debug/profilez waits for the
-continuous profiler, which the port does not carry yet, and answers 501
-with a body that names the ROADMAP item that brings it (item 8).
+original's names and bounds the edit.
 
 Parity target: the reference serves Prometheus metrics on :8080, health
 probes on :8081 and webhooks on :8443 (charts/karpenter/values.yaml:134-142,
@@ -40,6 +38,10 @@ log = logging.getLogger("karpenter.serving")
 # larger ask only serializes the same data with more zeros
 MAX_TRACE_LIMIT = 200
 
+# /debug/profilez ?n= ceiling: distinct folded stacks worth serializing —
+# beyond this the tail is single-sample noise
+MAX_PROFILE_STACKS = 500
+
 # /debug/criticalz ?n= ceiling: the critical ledger's ring default — a
 # larger ask only re-serializes the same tail
 MAX_CRITICAL_ROWS = 256
@@ -56,7 +58,7 @@ MAX_EVENTS = 1000
 def clamped_int_param(qs: dict, key: str, default: int,
                       ceiling: int) -> "Optional[int]":
     """Shared /debug listing-param discipline (/debug/traces ?limit=,
-    /debug/criticalz ?n=): a non-integer returns None — the caller answers
+    /debug/profilez ?n=): a non-integer returns None — the caller answers
     400, because a silent default would make a bad dashboard query look
     like a tiny ring — and a well-formed value clamps into [1, ceiling]."""
     try:
@@ -233,15 +235,37 @@ class ServingPlane:
                                         default=str),
                         content_type="application/json")
                 if self.path.startswith("/debug/profilez"):
-                    # the continuous profiler's read surface: not ported
-                    return self._text(501, "/debug/profilez needs the "
-                                      "continuous profiler (ROADMAP item 8)")
+                    # continuous-profiler read surface: ?format=json is the
+                    # pprof-style aggregation (stacks + device ladder + gap
+                    # ledger), ?format=folded is flamegraph-ready folded
+                    # stacks; ?n= bounds the stack listing (clamped like
+                    # /debug/traces ?limit=)
+                    from urllib.parse import parse_qs, urlsplit
+
+                    from . import profiling
+
+                    qs = parse_qs(urlsplit(self.path).query)
+                    n = clamped_int_param(qs, "n", 100, MAX_PROFILE_STACKS)
+                    if n is None:
+                        return self._text(400, "n must be an integer")
+                    fmt = qs.get("format", ["json"])[0]
+                    if fmt not in ("json", "folded"):
+                        return self._text(
+                            400, f"unknown format: {fmt} (json|folded)")
+                    # reading the endpoint is the always-on profiler's lazy
+                    # ignition (no-op while the plane is disabled)
+                    profiling.PROFILER.ensure_started()
+                    if fmt == "folded":
+                        return self._text(200, profiling.folded_text(n) + "\n")
+                    return self._text(
+                        200, json.dumps(profiling.profilez(n), default=str),
+                        content_type="application/json")
                 if self.path.startswith("/debug/criticalz"):
                     # critical-path read surface: per-solve
                     # interval analyses — chain length, overlap ratio,
                     # on/off-critical phase split, wait breakdown, plus
                     # the measured-roofline rung table; ?n= bounds the
-                    # row listing (clamped like /debug/traces ?limit=)
+                    # row listing (clamped like /debug/profilez ?n=)
                     from urllib.parse import parse_qs, urlsplit
 
                     from .profiling import critical

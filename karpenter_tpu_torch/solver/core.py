@@ -32,8 +32,12 @@ The solver runs on the CUDA card unless it is given device="cpu"; without a
 card and without that argument it raises. NativeSolver is the same encode
 and decode around the C++ host scan (native/), the controllers' second rung.
 
-For the solver service: a ShapeRouter (`router=`; one card, so every plan
-routes `single`), `last_shape_key`, and Sync-time warmup (`warm_shapes`).
+For the solver service: a ShapeRouter (`router=`), `last_shape_key`, and
+Sync-time warmup (`warm_shapes`). With a mesh context (`mesh_ctx=`, the
+process's parallel/sharded.ShardedContext on rank 0 of a process group of
+two or more ranks), a plan the router sends to the mesh runs there
+(`routing` "<device type>-sharded", `device_count` the mesh's ranks); its
+flat buffer equals the single card's bit for bit.
 The catalog arrays go up once through buckets.tracked_device_put (class
 `catalog`) and each solve's arrays through buckets.tracked_tree_put (class
 `delta`), so the upload counters and the HBM ledger see what crosses. The
@@ -44,9 +48,12 @@ a device in this process, which pays the caching allocator's growth and
 the first launches at that shape, and "hit" after; a warmup's dispatch
 counts as COMPILE_WARMUPS instead of a miss.
 
-Not ported yet (each has its own later slice): the measured roofline, the
-callback readback (a TPU relay workaround with no CUDA counterpart) and the
-mesh route.
+On the card each solve brackets its pack with two CUDA events
+(profiling.continuous.CudaEventSpan), whose span the continuous profiler's
+device ladder records. Not ported: the measured roofline (XLA's
+cost_analysis() has no torch counterpart, so no measured row is recorded)
+and the callback readback (a TPU relay workaround with no CUDA
+counterpart).
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from ..ops.packer import (INT_BIG, PackInputs, PackResult,
 from ..oracle.scheduler import (ExistingNode, Option, effective_alloc,
                                 kubelet_overhead_vector, option_labels,
                                 split_deferred_pods)
+from ..profiling.continuous import CudaEventSpan, detect_backend
 from ..profiling.gapledger import GAP_LEDGER
 from ..tracing import TRACER
 from . import buckets
@@ -163,13 +171,16 @@ class TorchSolver:
 
     def __init__(self, catalog: Catalog, provisioners: Sequence[Provisioner],
                  device: "str | torch.device | None" = None,
-                 router: "Optional[buckets.ShapeRouter]" = None):
+                 router: "Optional[buckets.ShapeRouter]" = None,
+                 mesh_ctx=None):
         self.device = resolve_device(device)
         self.catalog = catalog
         self.provisioners = list(provisioners)
-        # the solver service's per-solver route state; one card, so it
-        # always answers "single" (the mesh route is a later slice)
+        # the solver service's per-solver route state and the process's
+        # mesh context (parallel/sharded.ShardedContext, rank 0 of a process
+        # group of >= 2 ranks): the router picks the mesh only with both
         self._router = router
+        self._mesh_ctx = mesh_ctx
         # raw shape key of the last solve ((G, n_slots, Ne, Pv, optional
         # leaf flags)): the service's warmup history records these
         self.last_shape_key: "Optional[tuple]" = None
@@ -357,35 +368,40 @@ class TorchSolver:
                 shape_waves.setdefault(key, []).append(i)
         flats: "list[tuple[list[int], torch.Tensor]]" = []
         waves = []
-        for key, idxs in shape_waves.items():
-            plan = key[0]
-            members = [slots[i][1][1] for i in idxs]
-            if len(members) == 1:
-                n_eff = n_eff_of(members[0]["group_count"])
-                flat2d = dispatch_pack_inputs(members[0], plan,
-                                              self.device)[None]
-            else:
-                stacked = _stack_pack_inputs(members)
-                n_eff = n_eff_of(stacked["group_count"])
-                flat2d = _wave_pack_flat(stacked, plan.slots, self.device)
-            flats.append((idxs, flat2d))
-            waves.append({"bucket": plan.label(), "problems": len(idxs),
-                          "lanes": flat2d.shape[0], "steps": n_eff,
-                          "res_width": key[2]})
-        t2 = time.perf_counter()
-        GAP_LEDGER.note("link", t2 - t1, lane="solver", end_pc=t2)
         host: "dict[int, np.ndarray]" = {}
-        if flats:
-            cat = torch.cat([f.reshape(-1) for _, f in flats]).cpu().numpy()
-            t_fetch = time.perf_counter()
-            GAP_LEDGER.note("device_exec", t_fetch - t2, lane="device",
-                            end_pc=t_fetch)
-            off = 0
-            for idxs, f in flats:
-                K, L = f.shape
-                for j, slot_i in enumerate(idxs):
-                    host[slot_i] = cat[off + j * L: off + (j + 1) * L]
-                off += K * L
+        with CudaEventSpan(self.device) as span:
+            for key, idxs in shape_waves.items():
+                plan = key[0]
+                members = [slots[i][1][1] for i in idxs]
+                if len(members) == 1:
+                    n_eff = n_eff_of(members[0]["group_count"])
+                    flat2d = dispatch_pack_inputs(members[0], plan,
+                                                  self.device,
+                                                  span=span)[None]
+                else:
+                    stacked = _stack_pack_inputs(members)
+                    n_eff = n_eff_of(stacked["group_count"])
+                    flat2d = _wave_pack_flat(stacked, plan.slots,
+                                             self.device, span=span)
+                flats.append((idxs, flat2d))
+                waves.append({"bucket": plan.label(), "problems": len(idxs),
+                              "lanes": flat2d.shape[0], "steps": n_eff,
+                              "res_width": key[2]})
+            t2 = time.perf_counter()
+            GAP_LEDGER.note("link", t2 - t1, lane="solver", end_pc=t2)
+            if flats:
+                cat = torch.cat([f.reshape(-1) for _, f in flats]).cpu() \
+                    .numpy()
+                t_fetch = time.perf_counter()
+                GAP_LEDGER.note("device_exec", t_fetch - t2, lane="device",
+                                end_pc=t_fetch)
+                GAP_LEDGER.note_device_event(span.seconds())
+                off = 0
+                for idxs, f in flats:
+                    K, L = f.shape
+                    for j, slot_i in enumerate(idxs):
+                        host[slot_i] = cat[off + j * L: off + (j + 1) * L]
+                    off += K * L
         t3 = time.perf_counter()
 
         out: "list[SolveResult]" = []
@@ -440,19 +456,32 @@ class TorchSolver:
                 continue
             seen.add(key)
             fields = self._synth_inputs(grid, plan, pv, flags)
-            host_fetch(dispatch_pack_inputs(fields, plan, self.device))
+            route = ("single" if self._router is None
+                     or self._mesh_ctx is None
+                     else self._router.steady_route(plan))
+            if route == "sharded":
+                host_fetch(self._mesh_ctx.dispatch_flat(fields, plan.slots,
+                                                        grid))
+            else:
+                host_fetch(dispatch_pack_inputs(fields, plan, self.device))
             if _first_dispatch(self._dispatch_key(
                     plan, pv, flags, grid,
-                    buckets.LADDERS["resources"][0])):
+                    buckets.LADDERS["resources"][0], route)):
                 buckets.COMPILE_WARMUPS.inc()
                 warmed.append(plan.label())
+            # the JAX solver files XLA's cost_analysis() of the rung's
+            # compiled program into the measured roofline here; no torch
+            # backend has such a count, so the port records no measured
+            # row and roofline.measured_snapshot() says the source is
+            # unavailable (it invents no substitute)
         return warmed
 
     def _dispatch_key(self, plan, pv: int, flags: tuple, grid: OptionGrid,
-                      res_width: int) -> tuple:
-        """The identity of a dispatched shape on this solver's device."""
+                      res_width: int, route: str = "single") -> tuple:
+        """The identity of a dispatched shape on this solver's device and
+        route."""
         return (str(self.device), plan, pv, flags,
-                tuple(grid.tiebreak.shape), res_width)
+                tuple(grid.tiebreak.shape), res_width, route)
 
     def _synth_inputs(self, grid: OptionGrid, plan: "buckets.BucketPlan",
                       pv: int, flags: "tuple") -> dict:
@@ -538,12 +567,23 @@ class TorchSolver:
                                          self._dev_tiebreak)
         n_eff = n_eff_of(fields["group_count"])
         route = "single"
-        if self._router is not None:
+        if self._router is not None and self._mesh_ctx is not None:
             route = self._router.route(plan)
-        flat = dispatch_pack_inputs(fields, plan, self.device)
-        t2 = time.perf_counter()
-        host = host_fetch(flat)
-        t3 = time.perf_counter()
+        with CudaEventSpan(self.device) as span:
+            if route == "sharded":
+                # enc.grid is the grid this encode actually used (the
+                # resident sharded catalog arrays are keyed on its identity)
+                flat = _bracketed(span, lambda: self._mesh_ctx.dispatch_flat(
+                    fields, plan.slots, enc.grid))
+            else:
+                flat = dispatch_pack_inputs(fields, plan, self.device,
+                                            span=span)
+            t2 = time.perf_counter()
+            host = host_fetch(flat)
+            t3 = time.perf_counter()
+            GAP_LEDGER.note_device_event(span.seconds())
+        device_count = (self._mesh_ctx.device_count if route == "sharded"
+                        else 1)
         out = decode(enc, unflatten_result(host, *plan),
                      [e.name for e in existing])
         t4 = time.perf_counter()
@@ -552,7 +592,8 @@ class TorchSolver:
                  enc.prov_overhead is not None,
                  enc.prov_pods_cap is not None)
         if _first_dispatch(self._dispatch_key(
-                plan, pv, flags, enc.grid, int(fields["group_vec"].shape[1]))):
+                plan, pv, flags, enc.grid, int(fields["group_vec"].shape[1]),
+                route)):
             compile_cache = "miss"
             buckets.COMPILE_MISSES.inc()
         else:
@@ -566,7 +607,8 @@ class TorchSolver:
             "dispatch_ms": (t2 - t1) * 1000,
             "transfer_ms": (t3 - t2) * 1000,
             "decode_ms": (t4 - t3) * 1000,
-            "routing": self.device.type,
+            "routing": (f"{self.device.type}-sharded" if route == "sharded"
+                        else self.device.type),
             "bucket": plan.label(),
             "plan": tuple(plan),  # (Gb, Nb, Neb), the padded shape
             "slots": plan.slots,
@@ -574,7 +616,7 @@ class TorchSolver:
             "steps": n_eff,
             "rounds": 1,
             "compile_cache": compile_cache,
-            "device_count": 1,
+            "device_count": device_count,
         }
         TRACER.annotate(**self.last_solve_info)
         # decision provenance: the winning bucket rung + mask-dimension
@@ -608,7 +650,8 @@ class TorchSolver:
             bucket=plan.label(), route=route,
             groups=plan.groups, slots=plan.slots, existing=plan.existing,
             pv=pv, t=int(tb_shape[0]),
-            s=int(tb_shape[-1]), backend=self.device.type, device_count=1)
+            s=int(tb_shape[-1]), backend=detect_backend(self.device),
+            device_count=device_count)
         return out
 
 
@@ -852,11 +895,25 @@ def _tracked_upload(fields: dict, device) -> dict:
 
 
 def dispatch_pack_inputs(fields: dict, plan: "buckets.BucketPlan",
-                         device) -> torch.Tensor:
+                         device, span: "Optional[CudaEventSpan]" = None
+                         ) -> torch.Tensor:
     """ENQUEUE the pack of already-padded fields on `device`, no device
-    read. Returns the flat int32 result buffer on the device."""
+    read. Returns the flat int32 result buffer on the device. `span`'s
+    events bracket the pack's kernels, after the upload."""
     inputs = pack_inputs_from_numpy(_tracked_upload(fields, device), device)
-    return pack_flat(inputs, plan.slots, n_eff_of(fields["group_count"]))
+    return _bracketed(span, lambda: pack_flat(
+        inputs, plan.slots, n_eff_of(fields["group_count"])))
+
+
+def _bracketed(span: "Optional[CudaEventSpan]", fn):
+    """fn() between span's events (a wave's span covers all its packs: the
+    start is recorded once, the stop after each)."""
+    if span is None:
+        return fn()
+    span.start()
+    out = fn()
+    span.stop()
+    return out
 
 
 def dispatch_pack(enc: EncodedProblem, dev_alloc_t=None, dev_tiebreak=None,
@@ -868,12 +925,14 @@ def dispatch_pack(enc: EncodedProblem, dev_alloc_t=None, dev_tiebreak=None,
     return dispatch_pack_inputs(fields, plan, device), plan
 
 
-def _wave_pack_flat(stacked: dict, n_slots: int, device) -> torch.Tensor:
+def _wave_pack_flat(stacked: dict, n_slots: int, device,
+                    span: "Optional[CudaEventSpan]" = None) -> torch.Tensor:
     """One lane pack for a bucket of same-shape problems (the stacked
     fields of _stack_pack_inputs; the catalog tensors shared by the lanes).
     -> [K, L] flat buffers on the device."""
     inputs = lane_inputs_from_numpy(_tracked_upload(stacked, device), device)
-    return pack_flat_lanes(inputs, n_slots, n_eff_of(stacked["group_count"]))
+    return _bracketed(span, lambda: pack_flat_lanes(
+        inputs, n_slots, n_eff_of(stacked["group_count"])))
 
 
 def host_fetch(dev_arr: torch.Tensor) -> np.ndarray:

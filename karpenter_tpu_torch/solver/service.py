@@ -20,10 +20,18 @@ the original's names and bounds the edit. The service is split in two:
   and Shed into FAILED_PRECONDITION and DEADLINE_EXCEEDED.
 
 The service's solvers run on `device` (None: the CUDA card, which must be
-present; "cpu": the plain PyTorch path). One card, no mesh: Sync answers
-device_count=1 and mesh="", every ShapeRouter routes `single`, and
-Consolidate runs the one-shot lane search on the service's device (the lane
-mesh is ROADMAP item 9). Health reports the device type. With `trace_dir`,
+present; "cpu": the plain PyTorch path). In a process group of two or
+more ranks (solver-serve --distributed under torchrun) the service is rank
+0 and builds the process's mesh context at its first Sync
+(parallel/sharded.shared_context; the other ranks follow it): Sync answers
+the mesh's rank count and shape, each solver's ShapeRouter has that many
+devices, and Consolidate of CONSOLIDATE_LANE_MESH_MIN nodes or more runs
+its lanes over the lane mesh. Where the JAX package logs a warning and
+serves single-chip when its mesh fails to build, the port raises: a mesh
+that was asked for never quietly becomes one card. Without a process group
+(one card) Sync answers device_count=1 and mesh="", every ShapeRouter routes
+`single` and Consolidate runs the one-shot lane search on the service's
+device. Health reports the device type. With `trace_dir`,
 every `trace_every`-th solve runs under torch.profiler (CUDA activity on
 the card) and writes a Chrome trace there; a profiler failure never fails
 a solve.
@@ -70,9 +78,10 @@ SERVICE_NAME = "karpenter.solver.Solver"
 # burns device time someone else is queued for.
 SHED_MIN_BUDGET_MS = 10.0
 
-# Consolidation requests with at least this many nodes would run their
-# candidate lanes over the lane mesh (ROADMAP item 9); on one card every
-# request runs the one-shot lane search.
+# Consolidation requests with at least this many nodes run their
+# candidate lanes over the persistent lane mesh (data parallelism) when the
+# process group has one; below it the mesh's fixed collective cost
+# dominates and the one-shot lane search runs on the service's device.
 CONSOLIDATE_LANE_MESH_MIN = 64
 
 # Most shape buckets a single Sync will warm: warmup runs inline in the
@@ -218,6 +227,10 @@ class SolverService:
         # single-vs-sharded crossover shared by every solver's router
         # (None = env/default); one card routes every plan `single`
         self._crossover_cells = crossover_cells
+        # the process's mesh context, looked up at the FIRST Sync (never in
+        # __init__): None without a process group of >= 2 ranks
+        self._mesh_ctx = None
+        self._mesh_ctx_built = False
         # raw shape keys of recent Solves (most recent last, bounded):
         # the warmup working set a re-Sync warms first
         self._shape_seen: "OrderedDict[tuple, int]" = OrderedDict()
@@ -323,6 +336,24 @@ class SolverService:
                 "window": THRASH_WINDOW, "resident": resident,
                 "probation": probation, "pinned": pinned}
 
+    def _device_context(self):
+        """The process-lifetime mesh context (parallel/sharded
+        .shared_context) when this process is rank 0 of a process group of
+        two or more ranks, built at the FIRST Sync; None otherwise (the
+        router then always picks single-card). A mesh that fails to build
+        raises: it never degrades to one card."""
+        with self._lock:
+            if self._mesh_ctx_built:
+                return self._mesh_ctx
+        from ..parallel.sharded import shared_context, world_size
+
+        ctx = shared_context(self.device) if world_size() >= 2 else None
+        with self._lock:
+            if not self._mesh_ctx_built:
+                self._mesh_ctx = ctx
+                self._mesh_ctx_built = True
+            return self._mesh_ctx
+
     def _record_shape(self, solver: TorchSolver) -> None:
         key = solver.last_shape_key
         if key is None:
@@ -405,12 +436,12 @@ class SolverService:
             # shape history may have grown since the solver was installed
             warmed = self._warm(hit[0], warm_pod_counts)
             return self._sync_reply(catalog.seqnum, cat_hash, warmed)
-        # one card: the router routes every plan single-card (the mesh is
-        # ROADMAP item 9)
+        ctx = self._device_context()
         solver = TorchSolver(
-            catalog, provisioners, device=self.device,
+            catalog, provisioners, device=self.device, mesh_ctx=ctx,
             router=buckets.ShapeRouter(
-                n_devices=1, crossover_cells=self._crossover_cells))
+                n_devices=ctx.device_count if ctx is not None else 1,
+                crossover_cells=self._crossover_cells))
         # the most recent resident solver donates its static grid arrays +
         # group-encode folds: an ICE-only catalog change (spot storms bump
         # content per message) then skips the grid rebuild AND the device
@@ -514,10 +545,12 @@ class SolverService:
                  len(provisioners), warmed)
         return self._sync_reply(catalog.seqnum, cat_hash, warmed)
 
-    @staticmethod
-    def _sync_reply(seqnum: int, cat_hash: int, warmed: int) -> dict:
+    def _sync_reply(self, seqnum: int, cat_hash: int, warmed: int) -> dict:
+        ctx = self._device_context()
         return {"seqnum": seqnum, "catalog_hash": cat_hash,
-                "device_count": 1, "mesh": "", "warmed_buckets": warmed}
+                "device_count": ctx.device_count if ctx is not None else 1,
+                "mesh": ctx.describe() if ctx is not None else "",
+                "warmed_buckets": warmed}
 
     def solve(self, key: "tuple[int, int]", pods, existing=(),
               daemon_overhead: "Optional[Sequence[int]]" = None,
@@ -684,6 +717,13 @@ class SolverService:
                 for node in nodes:
                     cluster.add_node(node)
                 eligible = set(eligible_names)
+                # big requests shard their candidate lanes over the
+                # persistent lane mesh (data parallelism); small ones stay
+                # on the service's device
+                ctx = self._device_context()
+                lane_mesh = (ctx.lane_mesh if ctx is not None
+                             and len(nodes) >= CONSOLIDATE_LANE_MESH_MIN
+                             else None)
                 t0 = time.perf_counter()
                 action = run_consolidation(
                     cluster, solver.catalog, solver.provisioners,
@@ -694,7 +734,7 @@ class SolverService:
                                          if max_pair_candidates is None
                                          else max_pair_candidates),
                     candidate_filter=lambda n: n.name in eligible,
-                    device=self.device)
+                    mesh=lane_mesh, device=self.device)
                 ms = (time.perf_counter() - t0) * 1000
                 span.set_attributes(found=action is not None,
                                     consolidate_ms=ms)

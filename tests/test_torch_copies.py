@@ -70,6 +70,7 @@ COPIES = [
     "resilience/degrade.py",
     "solver/solver_pb2.py",
     "spot/forecaster.py", "spot/rebalance.py", "spot/state.py",
+    "parallel/__init__.py",
     "tracing/__init__.py", "utils/clock.py", "utils/errors.py",
     "utils/logring.py",
     "webhooks/__init__.py",
@@ -102,19 +103,20 @@ EDITED = {
     # the title and two docstring lines call the package a client and
     # cite no review round
     "cloudbackend/__init__.py": 6,
-    # /debug/profilez answers 501 naming the item that brings it (the
-    # continuous profiler, 8); two comments and a docstring line reworded
-    "serving.py": 40,
+    # two comments reworded
+    "serving.py": 4,
     # --device for `controller`, `solver-serve`, `fleet-replica` and
     # `chaos`; solver-serve and controller --solver exit 2 naming grpcio
     # where it is missing, and solver-serve --readback callback exits 2 (no
-    # callback transport); solver-serve --distributed exits 2 naming item
-    # 9; chaos writes its artifact under port_results/ (git-ignored), not
-    # benchmarks/, and its two perf-ledger helpers (_ledger_partition,
+    # callback transport); solver-serve --distributed joins the process
+    # group (rank 0 serves, the other ranks follow the mesh), and each
+    # rank tears its group down on the way out; chaos writes its artifact
+    # under port_results/ (git-ignored), not benchmarks/, and its two
+    # perf-ledger helpers (_ledger_partition,
     # _ledger_spotstorm, which append to benchmarks/results/ledger.jsonl)
     # are left out; the usage text, prog name and help strings name the
     # port
-    "__main__.py": 162,
+    "__main__.py": 170,
     # comments cite no issue or PR numbers of the JAX package's history
     "chaos/plan.py": 4,
     "chaos/invariants.py": 4,
@@ -140,12 +142,20 @@ EDITED = {
     "controllers/deprovisioning.py": None,
     # a "cuda" row (the H100 data sheet: PCIe Gen5 x16, float32) in place
     # of the tpu and gpu rows of PEAKS, and its comment; one heading names
-    # no issue number
-    "profiling/roofline.py": 14,
-    # no continuous profiler: the sampler start and the device-event feed
-    # go, and the header says so; two docstring lines reworded (an issue
-    # number, the two-round solve's name)
-    "profiling/gapledger.py": 18,
+    # no issue number; the measured snapshot says its source is
+    # unavailable (no compiler cost analysis on any torch backend)
+    "profiling/roofline.py": 16,
+    # the device-event feed records a solve's CUDA-event span where the
+    # solver filed one (note_device_event, the record's slot), labelled
+    # cuda-events, else the device_exec phase, labelled cpu-synthetic; two
+    # docstring lines reworded (an issue number, the two-round solve's
+    # name)
+    "profiling/gapledger.py": 27,
+    # the device ladder's rungs: cuda-events (CudaEventSpan) for tpu-sync,
+    # torch.profiler for jax.profiler, each event's mode given by its
+    # caller (MODES), detect_backend the solver's device type; the device
+    # half of the docstring says so
+    "profiling/continuous.py": 116,
     # three docstring and comment lines reworded (an issue number, the
     # pipelining change's and the wave loop's names)
     "profiling/critical.py": 6,
@@ -158,10 +168,16 @@ EDITED = {
     "solver/core.py": None,
     # the core/edge split: RPC methods over the protobuf-free core, grpc
     # moved to solver/edge.py, torch.profiler for jax.profiler, the device
-    # type in Health, no mesh context
-    "solver/service.py": 703,
+    # type in Health, the process's shared mesh context, which raises where
+    # the JAX package would serve single-chip
+    "solver/service.py": 713,
     # the method table names message classes; docstrings name the port
     "solver/client.py": 6,
+    # torch.distributed for GSPMD: one process per rank, the collectives
+    # written out (parallel/sharded.py's docstring); the process group's
+    # bootstrap from torchrun's environment
+    "parallel/sharded.py": None,
+    "parallel/multihost.py": None,
 }
 
 # names an edited port defines under another name
@@ -169,17 +185,26 @@ RENAMED = {"solver/core.py": {"TPUSolver": "TorchSolver"}}
 
 # names an edited port adds ("Class.method" for a method): the service's
 # protobuf-free core and its failures
-ADDED = {"solver/service.py": {
+ADDED = {
+    "parallel/sharded.py": {
+        "COLLECTIVES", "Mesh", "world_size", "shared_context",
+        "forget_contexts", "ShardedContext.follow", "ShardedContext.close",
+        "ShardedContext.driving"},
+    "parallel/multihost.py": {"TIMEOUT", "local_world_size",
+                              "shutdown_distributed"},
+    "solver/service.py": {
     "NotSynced", "Shed", "SolverService.sync", "SolverService.solve",
-    "SolverService.consolidate", "SolverService.health"}}
+    "SolverService.consolidate", "SolverService.health"},
+    "profiling/continuous.py": {"CudaEventSpan", "MODES"},
+    "profiling/gapledger.py": {"GapLedger.note_device_event"}}
 
 # names the port leaves out, each with the slice that brings it
 OMITTED = {
-    # /debug/profilez's ceiling goes with the endpoint (item 8)
-    "serving.py": {"MAX_PROFILE_STACKS"},
-    # continuous.py imports jax (item 8)
-    "profiling/__init__.py": {"PROFILER", "PROFILE_LANE_PID", "profilez",
-                              "folded_text"},
+    # GSPMD's shardings: the port's ranks slice their own inputs; and the
+    # mesh's compiled-program count: the solver's compile_cache key
+    # carries the route, the mesh's included (solver/core.py)
+    "parallel/sharded.py": {"input_shardings", "delta_shardings",
+                            "sharded_flat_cache_size"},
     # no caller: the solve times its one read (host_fetch) apart from the
     # unflatten
     "solver/core.py": {"fetch_pack"},
@@ -187,9 +212,8 @@ OMITTED = {
 
 
 # uses of an OMITTED name the port knows of: (module, name) -> the slice
-# that brings the name. The flight recorder's profile section stays an
-# error entry until the continuous profiler comes (item 8).
-KNOWN_GAPS = {("introspect/flightrecorder.py", "PROFILER"): "item 8"}
+# that brings the name. None since the continuous profiler came.
+KNOWN_GAPS: "dict[tuple[str, str], str]" = {}
 
 
 def strip_header(text: str) -> str:
@@ -284,8 +308,8 @@ def test_every_port_module_of_this_slice_is_pinned():
                   "coordination", "events", "explain",
                   "fake", "fleet", "incremental", "introspect", "metrics",
                   "native",
-                  "overload", "profiling", "recovery", "resilience", "solver",
-                  "spot", "tracing", "webhooks")
+                  "overload", "parallel", "profiling", "recovery",
+                  "resilience", "solver", "spot", "tracing", "webhooks")
     found = {str(p.relative_to(PORT)) for d in slice_dirs
              for p in (PORT / d).rglob("*") if p.suffix in (".py", ".cc")}
     found |= {"leaderelection.py", "operator.py", "utils/logring.py",

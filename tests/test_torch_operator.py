@@ -71,10 +71,11 @@ def _on_cpu(obj):
 # port names (after TPUSolver -> TorchSolver) whose imports the retarget
 # rebinds through _on_cpu, under the name each import binds
 _ON_CPU = {"SolverService", "serve", "TorchSolver", "NativeSolver",
-           "run_consolidation", "ChaosRunner", "spawn_replica"}
+           "run_consolidation", "ChaosRunner", "spawn_replica",
+           "ShardedContext"}
 # the port modules those names are imported from
 _ON_CPU_MODULES = (r"solver\.core|solver\.service|ops\.consolidate|chaos|"
-                   r"chaos\.runner|fleet|fleet\.replica")
+                   r"chaos\.runner|fleet|fleet\.replica|parallel\.sharded")
 
 
 def _cpu_rebind(m: "re.Match") -> str:
@@ -128,8 +129,9 @@ def retarget(name: str, modname: str, unported=(),
     * `TPUSolver` reads `TorchSolver`;
     * every `Operator(` is built with device="cpu", and each import of
       `SolverService`, `serve` (whose default builds a service),
-      `TorchSolver`, `NativeSolver`, `run_consolidation`, `ChaosRunner` or
-      `spawn_replica` binds a version whose `device` defaults to "cpu";
+      `TorchSolver`, `NativeSolver`, `run_consolidation`, `ChaosRunner`,
+      `spawn_replica` or `ShardedContext` binds a version whose `device`
+      defaults to "cpu";
     * each (old, new) pair of `labels`, a line of the source that names a
       JAX accelerator label, is rewritten once with the port's label (the
       device type, or the rung name "cuda").
@@ -236,11 +238,10 @@ QUEUE = "parity-queue"
 # controllers and caches, which carry wall-clock cycle times. By top-level
 # keys: the sections that read process-wide rings and registries, which
 # other tests in this process also feed (the pair compares the records
-# filed since it began instead), with the continuous profiler's host and
-# device rings, which only the JAX package has (ROADMAP item 8), left out
-# of profiling; the fleet section lists the live frontends of this
-# process and the overload section's counters are process-wide, so the
-# overload section is compared by its switch and its counter names. Left
+# filed since it began instead); the fleet section lists the live
+# frontends of this process and the overload section's counters are
+# process-wide, so the overload section is compared by its switch and its
+# counter names. Left
 # out: metrics (which families hold series depends on what else this
 # process ran) and pid.
 STATUSZ_VALUES = ("tool", "schema", "version", "ts", "serving", "cluster",
@@ -248,7 +249,6 @@ STATUSZ_VALUES = ("tool", "schema", "version", "ts", "serving", "cluster",
                   "incremental", "spot")
 STATUSZ_KEYS = ("controllers", "caches")
 STATUSZ_SKIP = ("pid", "metrics")
-JAX_ONLY_PROFILING = ("device", "host")
 
 
 def keys_of(x):
@@ -360,8 +360,7 @@ class OperatorStack(Stack):
             elif k in STATUSZ_KEYS:
                 out[k] = keys_of(v)
             else:
-                out[k] = sorted(set(v) - set(JAX_ONLY_PROFILING)
-                                if k == "profiling" else v)
+                out[k] = sorted(v)
         return out
 
     def interrupt(self, node_name: str) -> str:

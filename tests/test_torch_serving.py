@@ -20,10 +20,9 @@ Three parts:
   by a second client, statusz fetched from /debug/statusz, and the
   DecisionRecords fetched from /debug/decisions.
 * The port's CLI: `python -m karpenter_tpu_torch controller --simulate
-  --device cpu` boots in a subprocess, serves, and exits 0 on SIGINT; the
-  subcommands whose parts are not ported exit 2 naming their items, as
-  the two endpoints not ported answer 501 naming theirs. (`solver-serve`
-  boots: tests/test_torch_service.py runs it.)
+  --device cpu` boots in a subprocess, serves, and exits 0 on SIGINT.
+  (`solver-serve` boots: tests/test_torch_service.py runs it, and
+  tests/test_torch_multiprocess.py runs `solver-serve --distributed`.)
 """
 
 from __future__ import annotations
@@ -230,16 +229,6 @@ def test_cli_version(capsys):
     assert capsys.readouterr().out.strip() == __version__
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["solver-serve", "--distributed"], "9")],
-    ids=["solver-serve-distributed"])
-def test_cli_parts_not_ported_exit_2_naming_their_item(argv, item, capsys):
-    from karpenter_tpu_torch.__main__ import main
-
-    assert main(argv) == 2
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
-
-
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="a CUDA device is present: boot would succeed")
 def test_cli_controller_without_a_card_raises():
@@ -250,19 +239,6 @@ def test_cli_controller_without_a_card_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["controller", "--simulate", "--metrics-port", "-1",
               "--health-port", "-1", "--webhook-port", "-1"])
-
-
-@pytest.mark.parametrize("path,item", [("/debug/profilez", "8")])
-def test_endpoints_not_ported_answer_501_naming_their_item(served_op, path,
-                                                          item):
-    """The endpoint whose part the port does not carry yet answers 501 Not
-    Implemented with a body naming the ROADMAP item."""
-    op, ports = served_op
-    with pytest.raises(urllib.error.HTTPError) as e:
-        urllib.request.urlopen(f"http://127.0.0.1:{ports['metrics']}{path}",
-                               timeout=5)
-    assert e.value.code == 501
-    assert f"ROADMAP item {item}" in e.value.read().decode()
 
 
 def test_fleetz_answers_200_with_the_operators_fleet_view(served_op):
