@@ -7,7 +7,13 @@ replica processes), the chaos drills, the continuous profiler and the
 multi-rank mesh on one CUDA card.
 
     python3 chip_smoke.py            # the smoke: every phase below
-    python3 chip_smoke.py --slice    # paths A and B and phases 27-29 only
+    python3 chip_smoke.py --slice    # paths A and B and phases 27-31 only
+    python3 chip_smoke.py --ab-path-a DIR...   # path A in each checkout
+
+`--ab-path-a` compares checkouts on one card (give them in turns, as
+parent change change parent): for each DIR in order, a process in DIR
+builds its kernels and runs its own chip_smoke's path A phase
+AB_PATH_A_RUNS times, printing DIR and each phase line.
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or any
 CUDA card the kernels build for: sm_90a). It imports karpenter_tpu_torch
@@ -291,8 +297,8 @@ only, never jax or karpenter_tpu, and prints one line per phase:
              the card over gloo, the kernels built once by this process:
              parity, not speed. A 2-rank mesh (nodes 1 x types 2) and a
              4-rank mesh (2 x 2) each solve BASELINE config 4 (50k pods in
-             25 deployments, the 603-type catalog, 8 provisioners; copied
-             from benchmarks/baseline_configs.py:194-223) routed
+             25 deployments, the 603-type catalog, 8 provisioners;
+             karpenter_tpu_torch.entry.stress_problem) routed
              cuda-sharded, flat buffer equal to the single card's and
              decisions equal to the native scan's; the 4-rank mesh also
              path B, whose existing nodes and slots span both node slices;
@@ -302,7 +308,23 @@ only, never jax or karpenter_tpu, and prints one line per phase:
              `solver-serve --distributed` as 2 ranks launched as torchrun
              launches them answers a gRPC Solve routed cuda-sharded over 2
              devices with the direct solve's decisions, and both ranks exit
-             0 after SIGINT.
+             0 after SIGINT;
+30. entry  — the driver's single-card callable (karpenter_tpu_torch.entry.
+             entry(), the pack of a 64-pod, 16-type problem): its
+             PackResult on the card equal, field for field, to
+             entry(device="cpu")'s, the fused fill launched twice a step
+             and K1 never; the median wall of 5 calls;
+31. dryrun_multichip_8 — karpenter_tpu_torch.entry.dryrun_multichip(8):
+             8 rank processes share the card over gloo (parity, not
+             speed), the kernels built once by this process. BASELINE
+             config 4 at 50k pods over the (nodes 4 x types 2) mesh, with
+             rank 0's four checks: every PackResult field equal to the
+             single card's pack, the decisions equal to the native scan's
+             at 50k and to the oracle's on the 2k-pod subsample, and the
+             lane mesh's consolidation action over 33 candidates (the lane
+             pad path) equal to the one-shot sweep's. 50000 of 50000 pods
+             placed; every rank's row-max and fill launches equal and
+             above 0; rank 0's mesh walls and its checks' times.
 
 Paths A and B check that every node's used vector fits its decided type,
 that packed plus unschedulable equals the input pods, that the open-claim
@@ -2745,6 +2767,23 @@ def served_run(catalog, device, pods_fn, LAUNCHES, KERNEL, K1):
         srv.server_close()
 
 
+def first_row_difference(got, want) -> str:
+    """Where two outcome lists first differ: the row's index and both rows,
+    a machine row's pods given as the names only one side holds."""
+    if not (isinstance(got, list) and isinstance(want, list)):
+        return f"{got!s:.300} vs {want!s:.300}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        if isinstance(g, tuple) and len(g) == 4 and isinstance(g[3], tuple):
+            return (f"row {i}: card {g[:3]} with {len(g[3])} pods, cpu "
+                    f"{w[:3]} with {len(w[3])} pods; only on the card's "
+                    f"{sorted(set(g[3]) - set(w[3]))[:10]}, only on the "
+                    f"cpu's {sorted(set(w[3]) - set(g[3]))[:10]}")
+        return f"row {i}: {g!s:.300} vs {w!s:.300}"
+    return f"{len(got)} rows vs {len(want)}"
+
+
 def run_ctrl_served(catalog, pods_fn, LAUNCHES, KERNEL, K1):
     """ctrl_served: path A through the served port Operator over the port's
     mini apiserver and HttpKubeStore, on the card, held to the same run
@@ -2754,7 +2793,7 @@ def run_ctrl_served(catalog, pods_fn, LAUNCHES, KERNEL, K1):
     for key in want:
         check(got[key] == want[key],
               f"ctrl_served: {key} differ from the device='cpu' run's: "
-              f"{got[key]!s:.200} vs {want[key]!s:.200}")
+              f"{first_row_difference(got[key], want[key])}")
     check(row["launches"] > 0, "ctrl_served: no open-claim launch")
     for run, r in (("card", row), ("cpu", cpu_row)):
         phase("ctrl_served", run=run, pods=len(want["bound"])
@@ -4282,41 +4321,6 @@ def run_mesh_1(torch, catalog, prov, pods_a, info_a, info_b, LAUNCHES):
     return {"launches": launches, "rows": rows, "max_abs_err": worst}
 
 
-def config4_problem():
-    """BASELINE config 4, copied from benchmarks/baseline_configs.py:194-223
-    (stress_problem_50k): 50k pods in 25 deployments, the 603-type fleet
-    catalog, 8 provisioners with overlapping capacity-type and arch
-    requirements. -> (catalog, provisioners, pods)."""
-    from karpenter_tpu_torch.apis import wellknown as wk
-    from karpenter_tpu_torch.apis.provisioner import Provisioner
-    from karpenter_tpu_torch.models.pod import make_pod
-    from karpenter_tpu_torch.models.requirements import OP_IN, Requirements
-    from karpenter_tpu_torch.providers.instancetypes import generate_fleet_catalog
-
-    catalog = generate_fleet_catalog()
-    provisioners = []
-    for i, (ct, archs) in enumerate((
-            (["on-demand"], ["amd64"]),
-            (["spot", "on-demand"], ["amd64"]),
-            (["spot"], ["amd64"]),
-            (["on-demand"], ["arm64"]),
-            (["spot", "on-demand"], ["arm64"]),
-            (["spot", "on-demand"], ["amd64", "arm64"]),
-            (["on-demand"], ["amd64", "arm64"]),
-            (["spot"], ["amd64", "arm64"]))):
-        p = Provisioner(name=f"prov-{i}", weight=i,
-                        requirements=Requirements.of(
-                            (wk.LABEL_CAPACITY_TYPE, OP_IN, ct),
-                            (wk.LABEL_ARCH, OP_IN, archs)))
-        p.set_defaults()
-        provisioners.append(p)
-    n_dep, per = 25, 50_000 // 25
-    pods = [make_pod(f"d{d}-p{i}", cpu=f"{250 * (d % 4 + 1)}m",
-                     memory=f"{512 * (d % 8 + 1)}Mi")
-            for d in range(n_dep) for i in range(per)]
-    return catalog, provisioners, pods
-
-
 MESH_TIMED = 3
 
 
@@ -4334,6 +4338,7 @@ def mesh_rank_main(spec_path, rank):
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from karpenter_tpu_torch.device import LAUNCHES
+    from karpenter_tpu_torch.entry import stress_problem
     from karpenter_tpu_torch.ops import consolidate, open_claim
     from karpenter_tpu_torch.parallel import multihost, sharded
     from karpenter_tpu_torch.solver import buckets
@@ -4380,7 +4385,7 @@ def mesh_rank_main(spec_path, rank):
     for job in spec["jobs"]:
         if job in ("config4", "pathB"):
             if job == "config4":
-                catalog, provs, pods = config4_problem()
+                catalog, provs, pods = stress_problem()
                 existing = ()
             else:
                 from karpenter_tpu_torch.providers.instancetypes import \
@@ -4478,7 +4483,11 @@ def mesh_rank_main(spec_path, rank):
 
 
 def _spawn_mesh(world, jobs, label):
-    """Run one mesh_ranks group: -> every rank's result dict."""
+    """Run one mesh_ranks group through entry.spawn_ranks (a timeout for
+    the group; every rank killed when one fails): -> every rank's result
+    dict."""
+    from karpenter_tpu_torch.entry import spawn_ranks
+
     os.makedirs(RESULTS_DIR, exist_ok=True)
     base = os.path.join(RESULTS_DIR, f"mesh_{label}")
     for suffix in [".store", ".json"] + [f".out.{r}" for r in range(world)]:
@@ -4487,27 +4496,12 @@ def _spawn_mesh(world, jobs, label):
     with open(base + ".json", "w") as f:
         json.dump({"world": world, "store": base + ".store", "jobs": jobs,
                    "out": base + ".out"}, f)
-    logs = [open(f"{base}.log.{r}", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--mesh-rank", base + ".json", str(r)],
-                              stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(world)]
     try:
-        for r, proc in enumerate(procs):
-            rc = proc.wait(timeout=300)
-            if rc != 0:
-                logs[r].flush()
-                with open(f"{base}.log.{r}") as f:
-                    tail = f.read()[-3000:]
-                raise SmokeFailure(f"mesh_ranks {label}: rank {r} exited "
-                                   f"{rc}:\n{tail}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for log in logs:
-            log.close()
+        spawn_ranks(lambda r: [sys.executable, os.path.abspath(__file__),
+                               "--mesh-rank", base + ".json", str(r)],
+                    world, lambda r: f"{base}.log.{r}")
+    except RuntimeError as e:
+        raise SmokeFailure(f"mesh_ranks {label}: {e}") from None
     out = []
     for r in range(world):
         with open(f"{base}.out.{r}") as f:
@@ -4641,6 +4635,190 @@ def run_mesh_ranks(catalog, prov):
     return {"launches": dict(launches), "rows": rows, "serve": serve}
 
 
+ENTRY_TIMED = 5
+DRYRUN_RANKS = 8
+
+
+def run_entry(torch, LAUNCHES):
+    """entry: the driver's single-card callable on the card, its PackResult
+    equal field for field to entry(device="cpu")'s. Counts from 0 just
+    before the first call and read just after it. -> its launches."""
+    from karpenter_tpu_torch.entry import entry
+    from karpenter_tpu_torch.ops import open_claim, quotient
+    from karpenter_tpu_torch.ops.packer import n_eff_of
+
+    fn, args = entry()
+    steps = n_eff_of(args[0].group_count.cpu().numpy())
+    LAUNCHES.reset()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = LAUNCHES.take()
+    fn_cpu, args_cpu = entry(device="cpu")
+    want = fn_cpu(*args_cpu)
+    for field in got._fields:
+        check(torch.equal(getattr(got, field).cpu(), getattr(want, field)),
+              f"entry: {field} on the card differs from device='cpu'")
+    check(launches.get(open_claim.KERNEL, 0) == 2 * steps
+          and launches.get(quotient.KERNEL, 0) == 0,
+          f"entry: {launches} over {steps} steps")
+    walls = []
+    for _ in range(ENTRY_TIMED):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000)
+    phase("entry", assign_sum=int(got.assign.sum()), steps=steps,
+          fill_launches=launches.get(open_claim.KERNEL, 0),
+          bit_equal_cpu=True,
+          median_wall_ms=f"{statistics.median(walls):.3f}")
+    return launches
+
+
+def run_dryrun(world=DRYRUN_RANKS):
+    """dryrun_multichip_8: karpenter_tpu_torch.entry.dryrun_multichip over
+    `world` ranks sharing the card (parity, not speed); its four checks run
+    on rank 0, and a failing one raises. Then, here, the mesh's PackResult
+    against the plain fill's (the single-device pack on the CPU) of the
+    same padded problem, field for field; both launches of the split fill
+    against their plain halves at one rank's slice of config 4; and the
+    lane fill against its plain version at one rank's lanes of the sweep.
+    -> its result dict, with those checks' max |diff|."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.apis import wellknown as wk
+    from karpenter_tpu_torch.entry import (_pack_one, dryrun_multichip,
+                                           pad_inputs, stress_problem)
+    from karpenter_tpu_torch.models.encode import encode_problem
+    from karpenter_tpu_torch.ops import consolidate, quotient
+    from karpenter_tpu_torch.ops import open_claim as oc
+    from karpenter_tpu_torch.ops.packer import (PackResult, n_eff_of,
+                                                pack_inputs_from_numpy)
+
+    d = dryrun_multichip(world)
+    check(d["device"] == "cuda", f"dryrun ran on {d['device']}")
+    check(d["placed"] == d["pods_total"] == 50_000 and d["unsched"] == 0,
+          f"dryrun placed {d['placed']} of {d['pods_total']}")
+    check(d["candidates"] == 4 * world + 1,
+          f"dryrun swept {d['candidates']} candidates")
+    # each rank's launches over its mesh runs (the pack and the lane sweep)
+    counts = [dict(collections.Counter(r["pack"]) + collections.Counter(
+        r["lanes"])) for r in d["launches_per_rank"]]
+    check(all(c == counts[0] for c in counts)
+          and counts[0].get(oc.ROWMAX_KERNEL, 0) > 0
+          and counts[0].get(oc.KERNEL, 0) > 0
+          and counts[0].get(quotient.KERNEL, 0) == 0
+          and set(counts[0]) == {oc.ROWMAX_KERNEL, oc.KERNEL},
+          f"dryrun launches per rank: {counts}")
+    catalog, provisioners, pods = stress_problem(d["pods_total"])
+    enc = encode_problem(catalog, provisioners, pods, grid=None)
+    inputs, n_slots = pad_inputs(enc)
+    t0 = time.perf_counter()
+    plain = _pack_one(pack_inputs_from_numpy(inputs._asdict(),
+                                             torch.device("cpu")),
+                      n_slots, n_eff_of(inputs.group_count))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for field in PackResult._fields:
+        a, b = d["result"][field], getattr(plain, field).numpy()
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"dryrun: the mesh's {field} differs from the plain fill's "
+              f"single-device pack on the CPU")
+    # one rank's slice: its nodes' share of the slots, its types' share of
+    # the type-padded catalog; every provisioner plane, no pods cap
+    T, R = enc.alloc_t.shape
+    _, Pv, _, S = enc.group_feas.shape
+    nodes, types = d["axes"]["nodes"], d["axes"]["types"]
+    N_rank, T_rank = n_slots // nodes, -(-T // types)
+    rowmax_err, _ = check_rowmax(torch, oc, "dryrun_rank", open_claim_case(
+        torch, N_rank, T_rank, S, R, Pv, False, seed=N_rank + T_rank,
+        rem=37 * N_rank))
+    # one rank's lanes of the sweep: the candidates padded to the ranks,
+    # consolidate.N_SLOTS slots a lane, one alloc shared by every lane
+    L_rank = -(-d["candidates"] // world)
+    case = lane_case(torch, L_rank, consolidate.N_SLOTS, T, S,
+                     wk.NUM_RESOURCES, len(provisioners), True, False,
+                     seed=L_rank)
+    lane_err = 0
+    for name, g, w in zip(("m", "optmask", "used", "rem"),
+                          run_open_claim_kernel(torch, oc, case),
+                          oc.open_claim_fill_reference(**case)):
+        lane_err = max(lane_err, int((g.long() - w.long()).abs().max()))
+        check(torch.equal(g, w), f"dryrun: the lane fill's {name} differs "
+                                 f"from its plain version at L={L_rank}")
+    phase("dryrun_multichip_8", label="ranks_sharing_one_card:"
+          "_parity,_not_speed", ranks=world,
+          mesh=json.dumps(d["axes"]).replace(" ", ""),
+          placed=f"{d['placed']}/{d['pods_total']}", nodes=d["nodes"],
+          bit_equal_single_card=True, bit_equal_plain_cpu=True,
+          plain_cpu_pack_ms=f"{plain_ms:.3f}",
+          rank_fill_shape=f"N{N_rank}xT{T_rank}xS{S}xR{R}xPv{Pv}",
+          rank_split_max_abs_err=rowmax_err,
+          rank_lane_shape=f"L{L_rank}xN{consolidate.N_SLOTS}xT{T}xS{S}"
+                          f"xR{wk.NUM_RESOURCES}xPv{len(provisioners)}",
+          rank_lane_max_abs_err=lane_err,
+          native_decisions=d["native_decisions"],
+          oracle_pods=d["oracle_pods"],
+          oracle_decisions=d["oracle_decisions"],
+          candidates=d["candidates"], action=d["action"],
+          rank0_pack_wall_ms=f"{d['wall_ms']:.3f}",
+          rank0_lanes_wall_ms=f"{d['lanes_wall_ms']:.3f}",
+          **{f"rank0_{k}_ms": f"{v:.3f}" for k, v in d["check_ms"].items()},
+          group_seconds=f"{d['group_s']:.1f}",
+          rowmax_launches_per_rank=json.dumps(
+              [c[oc.ROWMAX_KERNEL] for c in counts]).replace(" ", ""),
+          fill_launches_per_rank=json.dumps(
+              [c[oc.KERNEL] for c in counts]).replace(" ", ""),
+          pack_launches_rank0=json.dumps(
+              d["launches_per_rank"][0]["pack"]).replace(" ", ""),
+          lanes_launches_rank0=json.dumps(
+              d["launches_per_rank"][0]["lanes"]).replace(" ", ""),
+          collectives_rank0=json.dumps(d["collectives_rank0"]).replace(
+              " ", ""))
+    d.update(counts=counts, rowmax_err=rowmax_err, lane_err=lane_err)
+    return d
+
+
+AB_PATH_A_RUNS = 3
+_AB_PATH_A = f"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as smoke
+from karpenter_tpu_torch.device import LAUNCHES
+from karpenter_tpu_torch.ops import _build, open_claim, quotient
+from karpenter_tpu_torch.providers.instancetypes import generate_fleet_catalog
+from karpenter_tpu_torch.solver.core import TorchSolver
+_build.build()
+catalog = generate_fleet_catalog()
+for _ in range({AB_PATH_A_RUNS}):
+    smoke.run_path("pathA", catalog, smoke.provisioner(),
+                   smoke.mixed_workload(10_000), (), LAUNCHES, TorchSolver,
+                   open_claim.KERNEL, quotient.KERNEL)
+"""
+
+
+def run_ab_path_a(dirs) -> int:
+    """`--ab-path-a DIR...`: path A in each checkout, in the order given,
+    each in a process of its own. -> the first non-zero exit code, or 0."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the card",
+              file=sys.stderr)
+        return 2
+    print(nvidia_smi_line(), flush=True)
+    for d in dirs:
+        print(d, flush=True)
+        r = subprocess.run([sys.executable, "-c", _AB_PATH_A], cwd=d,
+                           capture_output=True, text=True, timeout=900)
+        for line in r.stdout.splitlines():
+            if line.startswith("[pathA]"):
+                print(line, flush=True)
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr)
+            return r.returncode
+    return 0
+
+
 def run_slice(torch, LAUNCHES, TorchSolver) -> int:
     """`--slice`: paths A and B, A's profile and the profiler and mesh
     phases only, for a short check of the newest phases. Prints no result
@@ -4663,6 +4841,8 @@ def run_slice(torch, LAUNCHES, TorchSolver) -> int:
     run_mesh_1(torch, catalog, prov, pods_a, info["pathA"], info["pathB"],
                LAUNCHES)
     run_mesh_ranks(catalog, prov)
+    run_entry(torch, LAUNCHES)
+    run_dryrun()
     phase("slice", ok=True)
     return 0
 
@@ -4868,22 +5048,35 @@ def main(argv=()) -> int:
         mesh1 = run_mesh_1(torch, catalog, prov, pods_a, info_a, info_b,
                            LAUNCHES)
         ranks = run_mesh_ranks(catalog, prov)
+        # the driver's entry points: entry()'s counts from 0 just before
+        # its first call; the dry run's per rank, each mesh run from 0
+        entry_launches = run_entry(torch, LAUNCHES)
+        dry = run_dryrun()
         RM = open_claim.ROWMAX_KERNEL
         path_launches["mesh_1"] = {OC: mesh1["launches"][OC], K1: 0}
         path_launches["mesh_ranks"] = {OC: ranks["launches"].get(OC, 0),
                                        K1: ranks["launches"].get(K1, 0)}
+        path_launches["entry"] = {OC: entry_launches.get(OC, 0),
+                                  K1: entry_launches.get(K1, 0)}
+        path_launches["dryrun_multichip_8"] = {
+            k: sum(c.get(k, 0) for c in dry["counts"]) for k in (OC, K1)}
         rowmax_launches = {"mesh_1": mesh1["launches"][RM],
-                           "mesh_ranks": ranks["launches"].get(RM, 0)}
+                           "mesh_ranks": ranks["launches"].get(RM, 0),
+                           "dryrun_multichip_8": sum(
+                               c[RM] for c in dry["counts"])}
 
         def per_rank(job, key):
             """One rank's count in one mesh run of `job`, by rank count."""
             return {f"{w}ranks": row[job][key]
                     for w, row in ranks["rows"].items() if job in row}
-        for path in ("mesh_1", "mesh_ranks"):
+        for path in ("mesh_1", "mesh_ranks", "dryrun_multichip_8"):
             check(path_launches[path][OC] > 0 and rowmax_launches[path] > 0,
                   f"the split fill was never launched on {path}")
             check(path_launches[path][K1] == 0,
                   f"{path} launched the standalone K1")
+        check(path_launches["entry"][OC] > 0
+              and path_launches["entry"][K1] == 0,
+              f"entry launched {entry_launches}")
 
         inflate_catalog = generate_fleet_catalog(max_types=20)
         from karpenter_tpu_torch.apis.provisioner import Provisioner
@@ -4940,7 +5133,10 @@ def main(argv=()) -> int:
                 "pathB", "fill_launches_per_solve"),
             "launches_mesh_ranks_config3_per_sweep_per_rank": per_rank(
                 "config3", "fill_launches_per_sweep"),
-            "max_abs_err": max(oc_err, lanes_err),
+            "launches_entry": path_launches["entry"][OC],
+            "launches_dryrun_per_rank": [c[OC] for c in dry["counts"]],
+            "max_abs_err": max(oc_err, lanes_err, dry["rowmax_err"],
+                               dry["lane_err"]),
             "ms": oc_a["ms"],
             "plain_ms": oc_a["plain_ms"],
             "bound_ms": oc_a["bound_ms"],
@@ -4960,7 +5156,9 @@ def main(argv=()) -> int:
                 "config4", "rowmax_launches_per_solve"),
             "launches_mesh_ranks_pathB_per_solve_per_rank": per_rank(
                 "pathB", "rowmax_launches_per_solve"),
-            "max_abs_err": mesh1["max_abs_err"],
+            "launches_entry": entry_launches.get(RM, 0),
+            "launches_dryrun_per_rank": [c[RM] for c in dry["counts"]],
+            "max_abs_err": max(mesh1["max_abs_err"], dry["rowmax_err"]),
             "ms": mesh1["rows"]["pathA"]["ms"],
             "plain_ms": mesh1["rows"]["pathA"]["plain_ms"],
             "bound_ms": mesh1["rows"]["pathA"]["bound_ms"],
@@ -4986,6 +5184,9 @@ def main(argv=()) -> int:
             "launches_service_per_solve": 0,
             "launches_fleet_per_mega_solve": 0,
             "launches_chaos_spot_storm": 0,
+            "launches_entry": path_launches["entry"][K1],
+            "launches_dryrun_per_rank": [c.get(K1, 0)
+                                         for c in dry["counts"]],
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain,
@@ -5011,4 +5212,6 @@ def main(argv=()) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) > 2 and sys.argv[1] == "--ab-path-a":
+        sys.exit(run_ab_path_a(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

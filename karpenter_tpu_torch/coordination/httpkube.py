@@ -464,6 +464,10 @@ class HttpKubeStore:
 
     def _relist(self, kind: str) -> None:
         doc = self._request_json("GET", self._url(kind))
+        # an object written after the LIST's snapshot (a create racing the
+        # relist) is newer than the snapshot, not stale: evicting it would
+        # drop it from the cache until its echo re-adds it, last in order
+        list_rv = int((doc.get("metadata") or {}).get("resourceVersion") or 0)
         fresh = {}
         for item in doc.get("items", []):
             name = serde.manifest_name(item)
@@ -471,7 +475,8 @@ class HttpKubeStore:
                 fresh[name] = item
         with self._lock:
             stale = {n for n in (o for o in self._cache._objects[kind])
-                     if n not in fresh}
+                     if n not in fresh and not (
+                         list_rv and self._rv.get((kind, n), 0) > list_rv)}
             for name, item in fresh.items():
                 self._apply_manifest(kind, "MODIFIED", item, notify=True)
             for name in stale:

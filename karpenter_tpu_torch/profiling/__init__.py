@@ -30,10 +30,14 @@ from .state import disabled, enabled, set_enabled  # noqa: F401
 
 def activity() -> dict:
     """Monotonic activity counters + ring lengths — the chaos
-    ``profiling-strict-noop`` invariant diffs two of these."""
+    ``profiling-strict-noop`` invariant diffs two of these. The host
+    sampler's two counts are read under its sweep's lock, which also
+    guards its enabled check: no sweep lands after a read that follows
+    set_enabled(False)."""
+    host_samples, host_ring = PROFILER.host.counts()
     return {
-        "host_samples": PROFILER.host.samples_total,
-        "host_ring": PROFILER.host.ring_len(),
+        "host_samples": host_samples,
+        "host_ring": host_ring,
         "device_events": PROFILER.device.events_total,
         "device_ring": PROFILER.device.ring_len(),
         "gap_rows": GAP_LEDGER.rows_total,

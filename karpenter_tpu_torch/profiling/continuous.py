@@ -226,6 +226,11 @@ class HostSampler:
                 now = time.time()
                 n = 0
                 with self._lock:
+                    # read again under the lock that counts() reads under:
+                    # a sweep lands before a read that follows
+                    # set_enabled(False), or not at all
+                    if not state.enabled():
+                        continue
                     for tid, frame in frames.items():
                         if tid == own:
                             continue
@@ -246,6 +251,12 @@ class HostSampler:
     def ring_len(self) -> int:
         with self._lock:
             return len(self._ring)
+
+    def counts(self) -> "tuple[int, int]":
+        """(samples_total, ring length), read together under the sweep's
+        lock (profiling.activity)."""
+        with self._lock:
+            return self.samples_total, len(self._ring)
 
     def samples(self) -> "list[tuple[float, str, str]]":
         with self._lock:

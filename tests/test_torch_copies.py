@@ -98,8 +98,9 @@ EDITED = {
     # controllers; solver_target first checks that grpcio imports; one
     # comment cites no review round
     "operator.py": 19,
-    # three comment lines cite no review round
-    "coordination/httpkube.py": 6,
+    # three comment lines cite no review round; a relist keeps an object
+    # written after its LIST's snapshot (the race the original keeps)
+    "coordination/httpkube.py": 13,
     # the title and two docstring lines call the package a client and
     # cite no review round
     "cloudbackend/__init__.py": 6,
@@ -154,8 +155,10 @@ EDITED = {
     # the device ladder's rungs: cuda-events (CudaEventSpan) for tpu-sync,
     # torch.profiler for jax.profiler, each event's mode given by its
     # caller (MODES), detect_backend the solver's device type; the device
-    # half of the docstring says so
-    "profiling/continuous.py": 116,
+    # half of the docstring says so; a sweep reads the switch again under
+    # the lock it appends under, and counts() reads both host counts under
+    # it (the strict-noop race the original keeps)
+    "profiling/continuous.py": 127,
     # three docstring and comment lines reworded (an issue number, the
     # pipelining change's and the wave loop's names)
     "profiling/critical.py": 6,
@@ -195,7 +198,8 @@ ADDED = {
     "solver/service.py": {
     "NotSynced", "Shed", "SolverService.sync", "SolverService.solve",
     "SolverService.consolidate", "SolverService.health"},
-    "profiling/continuous.py": {"CudaEventSpan", "MODES"},
+    "profiling/continuous.py": {"CudaEventSpan", "MODES",
+                                "HostSampler.counts"},
     "profiling/gapledger.py": {"GapLedger.note_device_event"}}
 
 # names the port leaves out, each with the slice that brings it
@@ -301,9 +305,11 @@ def test_edited_port_keeps_the_original_names(rel):
 
 def test_every_port_module_of_this_slice_is_pinned():
     """Each module this slice added is a copy or an edited port here, or one
-    of the port's own modules (native loader, wire, capture)."""
+    of the port's own modules (native loader, wire, capture, the driver
+    entry points and the card probe)."""
     own = {"native/__init__.py", "solver/__init__.py", "solver/edge.py",
-           "solver/wire.py", "utils/capture.py"}
+           "solver/wire.py", "utils/capture.py", "entry.py",
+           "utils/cudaenv.py"}
     slice_dirs = ("batcher", "cache", "chaos", "cloudbackend", "controllers",
                   "coordination", "events", "explain",
                   "fake", "fleet", "incremental", "introspect", "metrics",
@@ -313,7 +319,7 @@ def test_every_port_module_of_this_slice_is_pinned():
     found = {str(p.relative_to(PORT)) for d in slice_dirs
              for p in (PORT / d).rglob("*") if p.suffix in (".py", ".cc")}
     found |= {"leaderelection.py", "operator.py", "utils/logring.py",
-              "serving.py", "__main__.py"}
+              "serving.py", "__main__.py", "entry.py", "utils/cudaenv.py"}
     assert all((PORT / rel).is_file() for rel in found)
     assert found <= set(COPIES) | set(EDITED) | own, \
         sorted(found - set(COPIES) - set(EDITED) - own)

@@ -12,10 +12,14 @@ HBM ledger) against the JAX package's, on the CPU.
   moves; under critical.disabled() the row lands without `critical` and no
   critical counter moves.
 * HbmLedger.set_resident replaces, and refuses a non-static class.
+* A host-sampler sweep that passed its enabled check before
+  set_enabled(False) lands before an activity() read that follows the
+  switch, or not at all (the port's repair of the strict-noop race).
 """
 
 from __future__ import annotations
 
+import threading
 import types
 
 import pytest
@@ -35,6 +39,7 @@ from karpenter_tpu_torch.models import instancetype as it
 from karpenter_tpu_torch.models import pod as tpod
 from karpenter_tpu_torch.models import requirements as treq
 from karpenter_tpu_torch.profiling import critical, gapledger, roofline
+from karpenter_tpu_torch.profiling.continuous import HostSampler
 from karpenter_tpu_torch.solver.core import TorchSolver
 
 JAX = types.SimpleNamespace(wk=jwk, Provisioner=JProvisioner, it=jit,
@@ -188,3 +193,57 @@ def test_hbm_ledger_replace_semantics():
     assert ledger.release("inc") == 512.0
     assert ledger.resident_bytes("inc") == 0.0
     assert ledger.resident_bytes() == 256.0
+
+
+class _SweepGate:
+    """The sampler's lock, with a gate on the sampler thread's sweeps: once
+    armed, the next sweep (the first of the two acquisitions of each
+    sampling round; the second adds the sweep's cost) signals `paused` and
+    waits for `go` before it takes the lock, that is after its own enabled
+    check. Other threads take the lock as usual."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rounds = 0
+        self.armed = False
+        self.paused = threading.Event()
+        self.go = threading.Event()
+
+    def __enter__(self):
+        if threading.current_thread().name == "profiling-sampler":
+            self._rounds += 1
+            if self.armed and self._rounds % 2 == 1:
+                self.armed = False
+                self.paused.set()
+                self.go.wait(timeout=10)
+        self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
+def test_a_sweep_in_flight_at_the_switch_adds_no_sample_after_the_read(
+        monkeypatch):
+    """A sweep that passed its enabled check, then set_enabled(False), then
+    activity(): when the sweep goes on, host_samples stays at what the read
+    gave (it reads the switch again under its lock)."""
+    host = HostSampler(hz=500)
+    gate = _SweepGate()
+    host._lock = gate
+    monkeypatch.setattr(profiling.PROFILER, "host", host)
+    try:
+        assert host.ensure_started()
+        gate.armed = True
+        assert gate.paused.wait(timeout=10), "the sampler never swept"
+        profiling.set_enabled(False)
+        before = profiling.activity()
+        gate.go.set()
+        host.stop()                 # joins the sampler: its sweep has ended
+        assert not host.running()
+        assert profiling.activity()["host_samples"] == \
+            before["host_samples"]
+        assert profiling.activity()["host_ring"] == before["host_ring"]
+    finally:
+        gate.go.set()
+        host.stop()
