@@ -25,6 +25,7 @@ device-resident across solves; only the group arrays ship per solve.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -327,6 +328,7 @@ def encode_problem(
     grid: Optional[OptionGrid] = None,
     group_cache: "Optional[dict]" = None,
     option_mask: Optional[np.ndarray] = None,
+    marks: "Optional[list]" = None,
 ) -> EncodedProblem:
     """`group_cache` (owned by a solver instance whose provisioner set is
     fixed) memoizes encode_group results across solves keyed by (group key,
@@ -339,7 +341,11 @@ def encode_problem(
     ANDs into availability for NEW-node admission only — existing-node
     feasibility is untouched, matching the oracle's barred-option filter.
     The final cache level is bypassed while a mask is active (masks change
-    within a solve loop); the static folds are still reused."""
+    within a solve loop); the static folds are still reused.
+
+    `marks`, where given, gets the solver's span boundaries appended:
+    perf_counter_ns() before and after prepare_groups, after the per-group
+    fold and after the bounds, then the groups the cache missed."""
     if grid is None or grid.seqnum != catalog.seqnum:
         grid = build_grid(catalog, reuse=grid)
     provs = sorted(provisioners, key=lambda p: (-p.weight, p.name))
@@ -347,7 +353,11 @@ def encode_problem(
     # zone-spread universe = zones with AVAILABLE options (parity with the
     # oracle's available-offering universe; the grid's static zone axis
     # spans all DEFINED offerings)
+    if marks is not None:
+        marks.append(time.perf_counter_ns())
     groups = prepare_groups(pods, grid.active_zones(), existing)
+    if marks is not None:
+        marks.append(time.perf_counter_ns())
     G, Pv, T, S = len(groups), len(provs), grid.T, grid.S
     R = wk.NUM_RESOURCES
 
@@ -403,6 +413,7 @@ def encode_problem(
             group_cache["entries"] = {}
     ovh_key = tuple(overhead)
     avail = grid.valid if option_mask is None else (grid.valid & option_mask)
+    misses = 0
     for gi, g in enumerate(groups):
         entry = None
         ck = None
@@ -411,6 +422,7 @@ def encode_problem(
             if option_mask is None:
                 entry = group_cache["entries"].get(ck)
         if entry is None:
+            misses += 1
             static = group_cache["static"].get(ck) if ck is not None else None
             if static is None:
                 static = encode_group_static(
@@ -439,6 +451,8 @@ def encode_problem(
             # hot-loop-ok: legacy dataclass-view compatibility path
             for ei, e in enumerate(existing):
                 ex_feas[gi, ei] = _ex_label_fit(e, g.spec)
+    if marks is not None:
+        marks.append(time.perf_counter_ns())
 
     # Per-existing-node REMAINING group caps: hostname spread/anti-affinity
     # counts pods already RESIDENT on the node (the oracle does the same via
@@ -501,6 +515,8 @@ def encode_problem(
             if kstar > 0:
                 bound += -(-int(group_count[gi]) // kstar)
         n_slots = max(8, bound)
+    if marks is not None:
+        marks += (time.perf_counter_ns(), misses)
 
     return EncodedProblem(
         alloc_t=grid.alloc_t, valid=grid.valid, tiebreak=grid.tiebreak,

@@ -21,12 +21,18 @@ Groups with required pod-(anti-)affinity to co-pending groups take a second
 round, fed by _carry_round1_existing and folded back by _merge_rounds,
 exactly as in the JAX package.
 
-Each solve files its phases as the JAX solver does: the solver.encode /
-solver.dispatch.execute / solver.transfer / solver.decode spans, the
-encode/link/device_exec/decode notes of the gap ledger (profiling/) with
-the rung's shape and `backend` (the solver's device type, "cuda" or
-"cpu"), and, while the explain plane is on, the winning rung and the mask
-dimensions in last_solve_info["decision"].
+Each solve reads its phase boundaries once and keeps them as one span
+record, last_solve_info["spans"]: (name, start_ns, end_ns) on the clock
+of torch.profiler's events (time.time_ns), for the split, encode (its
+groups, fold and bounds), dispatch (its inputs and enqueue), transfer and
+decode, then each garbage collection inside the solve (runtime.gc, from
+profiling/gcpause.py). From that record come its encode_ms, dispatch_ms,
+transfer_ms and decode_ms, the tracer's spans, each filed at its start,
+and, as the JAX solver files them, the encode/link/device_exec/decode
+notes of the gap ledger (profiling/) with the rung's shape and `backend`
+(the solver's device type, "cuda" or "cpu"); while the explain plane is
+on, the winning rung and the mask dimensions ride in
+last_solve_info["decision"].
 
 The solver runs on the CUDA card unless it is given device="cpu"; without a
 card and without that argument it raises. NativeSolver is the same encode
@@ -82,6 +88,7 @@ from ..oracle.scheduler import (ExistingNode, Option, effective_alloc,
                                 split_deferred_pods)
 from ..profiling.continuous import CudaEventSpan, detect_backend
 from ..profiling.gapledger import GAP_LEDGER
+from ..profiling.gcpause import GC_PAUSES
 from ..tracing import TRACER
 from . import buckets
 
@@ -119,6 +126,48 @@ def _bucket(n: int, lo: int = 8) -> int:
 # dispatch of a key is the compile cache's "miss" (see the module docstring)
 _DISPATCHED: "set[tuple]" = set()
 _DISPATCHED_LOCK = threading.Lock()
+
+
+# a solve's span record: each child's parent, and the gap-ledger phase and
+# lane of each span the ledger attributes
+_PARENTS = {
+    "solver.encode.groups": "solver.encode",
+    "solver.encode.fold": "solver.encode",
+    "solver.encode.bounds": "solver.encode",
+    "solver.dispatch.inputs": "solver.dispatch.execute",
+    "solver.dispatch.enqueue": "solver.dispatch.execute",
+}
+_LEDGER = {
+    "solver.split": ("encode", "encode"),
+    "solver.encode": ("encode", "encode"),
+    "solver.dispatch.execute": ("link", "solver"),
+    "solver.transfer": ("device_exec", "device"),
+    "solver.decode": ("decode", "encode"),
+}
+
+
+def _file_spans(record: tuple, attrs: dict, pauses: list,
+                anchor: int) -> None:
+    """File a solve's span record, (name, start_ns, end_ns) on the
+    profiler's clock (time.time_ns), with the tracer (each at its start,
+    children under their parents, the record's last len(pauses) entries
+    the collector's) and the ledger's spans with the gap ledger (`anchor`
+    takes them back to perf_counter's clock)."""
+    made: dict = {}
+    n = len(record) - len(pauses)
+    for name, s, e in record[:n]:
+        made[name] = TRACER.record_span(
+            name, (e - s) / 1e9, parent=made.get(_PARENTS.get(name)),
+            start_ts=s / 1e9, **attrs.get(name, {}))
+        if name in _LEDGER:
+            # seconds as a difference of the two perf_counter floats, so
+            # that one phase's start lands on the last one's end exactly
+            phase, lane = _LEDGER[name]
+            s_pc, e_pc = (s - anchor) / 1e9, (e - anchor) / 1e9
+            GAP_LEDGER.note(phase, e_pc - s_pc, lane=lane, end_pc=e_pc)
+    for (name, s, e), (_, _, gen, collected) in zip(record[n:], pauses):
+        TRACER.record_span(name, (e - s) / 1e9, start_ts=s / 1e9,
+                           generation=gen, collected=collected)
 
 
 def _first_dispatch(key: tuple) -> bool:
@@ -200,6 +249,7 @@ class TorchSolver:
         self.last_wave_flats: "list[Optional[np.ndarray]]" = []
         # flat int32 buffer of the last pack, as read back to the host
         self.last_flat: Optional[np.ndarray] = None
+        GC_PAUSES.install()
 
     def adopt_static(self, other: "TorchSolver",
                      share_group_cache: bool = True) -> None:
@@ -275,18 +325,20 @@ class TorchSolver:
         The gap ledger's wall bracket opens here (outermost opener wins), so
         both rounds' phase notes file against this one wall; the affinity
         split and the round-2 carry are host problem preparation (encode),
-        the merge is decode."""
+        the merge is decode. last_solve_info["spans"] holds both rounds'
+        span records, and its phase times and steps are their sums."""
         with GAP_LEDGER.solve_scope("solver"):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             primary, deferred = split_deferred_pods(pods)
-            GAP_LEDGER.note("encode", time.perf_counter() - t0,
-                            lane="encode")
+            split = (t0, time.perf_counter_ns(), len(pods))
             if not deferred:
                 return self._solve_once(pods, existing, daemon_overhead,
-                                        n_slots, option_mask=option_mask)
+                                        n_slots, option_mask=option_mask,
+                                        split=split)
             res = self._solve_once(primary, existing, daemon_overhead,
-                                   n_slots, option_mask=option_mask)
-            steps = self.last_solve_info["steps"]
+                                   n_slots, option_mask=option_mask,
+                                   split=split)
+            first = self.last_solve_info
             # Round 2 must see round 1's consumption of the REAL existing
             # nodes (the oracle mutates its views in place; this path
             # re-encodes, so carry used + origin-keyed in-run counts on
@@ -299,8 +351,13 @@ class TorchSolver:
             res2 = self._solve_once(deferred, carried + pseudo,
                                     daemon_overhead, n_slots,
                                     option_mask=option_mask)
-            self.last_solve_info["steps"] += steps
-            self.last_solve_info["rounds"] = 2
+            info = self.last_solve_info
+            summed = {k: first[k] + v for k, v in info.items()
+                      if k.endswith("_ms") or k == "steps"}
+            info.update(summed, rounds=2)
+            TRACER.annotate(**summed, rounds=2)
+            if "spans" in first:
+                info["spans"] = first["spans"] + info["spans"]
             t2 = time.perf_counter()
             merged = _merge_rounds(res, res2, {p.name: i for i, p in
                                                enumerate(pseudo)})
@@ -550,22 +607,28 @@ class TorchSolver:
         daemon_overhead: Optional[Sequence[int]] = None,
         n_slots: Optional[int] = None,
         option_mask=None,
+        split: "Optional[tuple]" = None,
     ) -> SolveResult:
         # Phases: encode is host work; dispatch is padding, the upload and
         # the asynchronous enqueue of the pack; transfer is the one
         # synchronising device->host read, so it holds the device's time;
-        # decode is host-side result shaping.
-        t0 = time.perf_counter()
+        # decode is host-side result shaping. Each boundary is read once,
+        # on perf_counter_ns's clock; `split` is solve()'s (start, end,
+        # pods) of the affinity split, which round 1 files.
+        marks: list = []
+        t0 = time.perf_counter_ns()
         enc = encode_problem(
             self.catalog, self.provisioners, pods, existing,
             daemon_overhead, n_slots, grid=self.grid(),
             group_cache=self._group_cache, option_mask=option_mask,
+            marks=marks,
         )
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         G, Ne = enc.group_vec.shape[0], enc.ex_alloc.shape[0]
         fields, plan = build_pack_inputs(enc, self._dev_alloc_t,
                                          self._dev_tiebreak)
         n_eff = n_eff_of(fields["group_count"])
+        t_in = time.perf_counter_ns()
         route = "single"
         if self._router is not None and self._mesh_ctx is not None:
             route = self._router.route(plan)
@@ -578,15 +641,15 @@ class TorchSolver:
             else:
                 flat = dispatch_pack_inputs(fields, plan, self.device,
                                             span=span)
-            t2 = time.perf_counter()
+            t2 = time.perf_counter_ns()
             host = host_fetch(flat)
-            t3 = time.perf_counter()
+            t3 = time.perf_counter_ns()
             GAP_LEDGER.note_device_event(span.seconds())
         device_count = (self._mesh_ctx.device_count if route == "sharded"
                         else 1)
         out = decode(enc, unflatten_result(host, *plan),
                      [e.name for e in existing])
-        t4 = time.perf_counter()
+        t4 = time.perf_counter_ns()
         pv = int(enc.group_feas.shape[1])
         flags = (enc.ex_cap is not None, enc.group_origin is not None,
                  enc.prov_overhead is not None,
@@ -603,10 +666,10 @@ class TorchSolver:
         self.last_shape_key = (G, enc.n_slots, Ne, pv) + flags
         self.last_flat = host
         self.last_solve_info = {
-            "encode_ms": (t1 - t0) * 1000,
-            "dispatch_ms": (t2 - t1) * 1000,
-            "transfer_ms": (t3 - t2) * 1000,
-            "decode_ms": (t4 - t3) * 1000,
+            "encode_ms": (t1 - t0) / 1e6,
+            "dispatch_ms": (t2 - t1) / 1e6,
+            "transfer_ms": (t3 - t2) / 1e6,
+            "decode_ms": (t4 - t3) / 1e6,
             "routing": (f"{self.device.type}-sharded" if route == "sharded"
                         else self.device.type),
             "bucket": plan.label(),
@@ -628,23 +691,40 @@ class TorchSolver:
                 "rung": plan.rung(),
                 "dimensions": MASK_DIMENSIONS,
             }
-        # the solver interior as first-class phase spans (children of the
-        # current solve span); kernels are built before the first solve,
-        # so dispatch is always an execute, never a compile
-        TRACER.record_span("solver.encode", t1 - t0)
-        TRACER.record_span("solver.dispatch.execute", t2 - t1,
-                           compile_cache=compile_cache, bucket=plan.label())
-        TRACER.record_span("solver.transfer", t3 - t2)
-        TRACER.record_span("solver.decode", t4 - t3)
-        # gap-ledger attribution of the same intervals against the
-        # enclosing wall scope; end_pc pins each at its real phase boundary
-        # so the critical plane sees the serial chain encode -> link ->
-        # fetch -> decode. The .cpu() read is the device sync, so t3 - t2
-        # is the device_exec evidence.
-        GAP_LEDGER.note("encode", t1 - t0, lane="encode", end_pc=t1)
-        GAP_LEDGER.note("link", t2 - t1, lane="solver", end_pc=t2)
-        GAP_LEDGER.note("device_exec", t3 - t2, lane="device", end_pc=t3)
-        GAP_LEDGER.note("decode", t4 - t3, lane="encode", end_pc=t4)
+        # the solve's span record, the one source of the tracer's phase
+        # spans (children of the current solve span; kernels are built
+        # before the first solve, so dispatch is always an execute, never a
+        # compile) and of the gap ledger's notes, each pinned at its phase
+        # boundary so the critical plane sees the serial chain encode ->
+        # link -> fetch -> decode (the .cpu() read is the device sync, so
+        # the transfer is the device_exec evidence); the collector's pauses
+        # inside the solve follow
+        g0, g1, f1, b1, misses = marks
+        spans = [("solver.encode", t0, t1),
+                 ("solver.encode.groups", g0, g1),
+                 ("solver.encode.fold", g1, f1),
+                 ("solver.encode.bounds", f1, b1),
+                 ("solver.dispatch.execute", t1, t2),
+                 ("solver.dispatch.inputs", t1, t_in),
+                 ("solver.dispatch.enqueue", t_in, t2),
+                 ("solver.transfer", t2, t3),
+                 ("solver.decode", t3, t4)]
+        if split is not None:
+            spans.insert(0, ("solver.split", split[0], split[1]))
+        pauses = GC_PAUSES.between(spans[0][1], t4)
+        spans += [("runtime.gc", p[0], p[1]) for p in pauses]
+        anchor = time.time_ns() - time.perf_counter_ns()
+        record = tuple((name, s + anchor, e + anchor) for name, s, e in spans)
+        self.last_solve_info["spans"] = record
+        _file_spans(record, {
+            "solver.split": {"pods": split[2] if split else 0},
+            "solver.encode.groups": {"pods": len(pods),
+                                     "groups": len(enc.groups)},
+            "solver.encode.fold": {"hits": len(enc.groups) - misses,
+                                   "misses": misses},
+            "solver.dispatch.execute": {"compile_cache": compile_cache,
+                                        "bucket": plan.label()},
+            "solver.dispatch.enqueue": {"steps": n_eff}}, pauses, anchor)
         tb_shape = enc.grid.tiebreak.shape
         GAP_LEDGER.annotate(
             bucket=plan.label(), route=route,
@@ -695,8 +775,15 @@ class NativeSolver(TorchSolver):
         daemon_overhead: Optional[Sequence[int]] = None,
         n_slots: Optional[int] = None,
         option_mask=None,
+        split: "Optional[tuple]" = None,
     ) -> SolveResult:
         from ..native import flatten_host, native_pack
+
+        if split is not None:  # the affinity split, as TorchSolver files it
+            anchor = time.time_ns() - time.perf_counter_ns()
+            _file_spans((("solver.split", split[0] + anchor,
+                          split[1] + anchor),),
+                        {"solver.split": {"pods": split[2]}}, [], anchor)
 
         t0 = time.perf_counter()
         enc = encode_problem(

@@ -1,8 +1,10 @@
 """Dependency-free span tracing (same zero-deps stance as metrics/).
 
 Copy of karpenter_tpu/tracing/__init__.py for the PyTorch port, which
-imports nothing of the JAX package; tests/test_torch_copies.py holds it to
-the original.
+imports nothing of the JAX package, edited; tests/test_torch_copies.py
+holds it to the original's names and bounds the edit. record_span takes a
+span's start, the registry names the solve's inner phases and its garbage
+collections, and ids come from a generator of the tracer's own.
 
 The scheduling cycle is really a routing decision between a ~7ms native
 path and a ~129ms on-chip path with poorly understood state transitions
@@ -28,6 +30,15 @@ karpenter_scheduling_phase_duration_seconds histogram):
   solver.solve                  in-process solver pipeline; attrs:
                                 encode_ms, dispatch_ms, transfer_ms,
                                 decode_ms, compile_cache
+    solver.split                the co-pending affinity split; attrs: pods
+    solver.encode               children: .groups (attrs: pods, groups),
+                                .fold (attrs: hits, misses), .bounds
+    solver.dispatch.execute     children: solver.dispatch.inputs (padding),
+                                solver.dispatch.enqueue (upload and
+                                launches; attrs: steps)
+    solver.transfer, solver.decode
+    runtime.gc                  a garbage collection inside a solve; attrs:
+                                generation, collected
 
 Trace context crosses the solver wire as (trace_id, span_id) strings —
 see solver/wire.py trace_context_to_wire / trace_context_from_wire.
@@ -42,6 +53,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import random
 import threading
 import time
 from typing import Optional
@@ -80,15 +92,22 @@ PHASE_REGISTRY = (
     "solver.service.Consolidate",
     "solver.extract",
     "solver.warm_start",
+    "solver.split",
     "solver.encode",
+    "solver.encode.groups",
+    "solver.encode.fold",
+    "solver.encode.bounds",
     "solver.serialize",
     "solver.dispatch.execute",
+    "solver.dispatch.inputs",
+    "solver.dispatch.enqueue",
     "solver.dispatch.compile",
     "solver.transfer",
     "solver.decode",
     "ingest.decode",
     "ingest.apply",
     "fleet.queue_wait",
+    "runtime.gc",
 )
 
 #: prefixes legitimising dynamically-built span names (f-strings)
@@ -98,8 +117,17 @@ DYNAMIC_PHASE_PREFIXES = (
 )
 
 
+# span and trace ids: a generator of the tracer's own, seeded from
+# os.urandom and again in a forked child, so an id costs no system call
+# (a solve files a span for each of its phases and collections) and no
+# caller's random.seed() repeats one
+_IDS = random.Random()
+if hasattr(os, "register_at_fork"):
+    os.register_at_fork(after_in_child=_IDS.seed)
+
+
 def _new_id(nbytes: int = 8) -> str:
-    return os.urandom(nbytes).hex()
+    return f"{_IDS.getrandbits(nbytes * 8):0{nbytes * 2}x}"
 
 
 class SpanContext:
@@ -246,12 +274,16 @@ class Tracer:
     def record_span(self, name: str, duration_s: float,
                     parent: "Optional[Span]" = None,
                     context: "Optional[SpanContext]" = None,
+                    start_ts: "Optional[float]" = None,
                     **attributes) -> Span:
-        """Synthesize an already-measured span (backdated by `duration_s`).
-        Hot paths that time phases with raw perf_counter deltas — solver
-        encode/dispatch, fleet queue wait, watch-ingest batches — file
-        those measurements as first-class spans without paying a context
-        manager per inner iteration. Parent resolution matches
+        """Synthesize an already-measured span, starting at `start_ts`
+        (time.time() seconds) where given, else backdated by `duration_s`
+        from now. Hot paths that time phases with raw perf_counter deltas
+        — solver encode/dispatch, fleet queue wait, watch-ingest batches —
+        file those measurements as first-class spans without paying a
+        context manager per inner iteration; a caller that files its
+        phases after the last one ends passes each phase's start, so the
+        phases are drawn where they ran. Parent resolution matches
         start_span; the span never touches the thread-local stack."""
         if parent is not None:
             trace_id, parent_id = parent.trace_id, parent.span_id
@@ -264,7 +296,10 @@ class Tracer:
             else:
                 trace_id, parent_id = _new_id(), ""
         span = Span(self, name, trace_id, _new_id(), parent_id, attributes)
-        span.start_ts -= duration_s
+        if start_ts is None:
+            span.start_ts -= duration_s
+        else:
+            span.start_ts = start_ts
         span.duration_s = max(0.0, duration_s)
         self._finish(span)
         return span

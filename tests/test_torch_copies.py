@@ -71,7 +71,7 @@ COPIES = [
     "solver/solver_pb2.py",
     "spot/forecaster.py", "spot/rebalance.py", "spot/state.py",
     "parallel/__init__.py",
-    "tracing/__init__.py", "utils/clock.py", "utils/errors.py",
+    "utils/clock.py", "utils/errors.py",
     "utils/logring.py",
     "webhooks/__init__.py",
 ]
@@ -83,8 +83,17 @@ EDITED = {
     # rung 0 named "cuda" in the hub's chains; wording of two comments
     "resilience/__init__.py": 8,
     "resilience/policy.py": 2,
-    # diagnose_unschedulable restored; three comments reworded earlier
-    "models/encode.py": 6,
+    # diagnose_unschedulable restored; three comments reworded earlier;
+    # encode_problem's `marks`: the solver's span boundaries (before and
+    # after prepare_groups, after the fold and the bounds) and the group
+    # cache's misses
+    "models/encode.py": 23,
+    # record_span takes a span's start on the shared clock, so a solve's
+    # phases, filed after the last one ends, are drawn where they ran; the
+    # registry names the solve's inner phases (split, encode's groups,
+    # fold and bounds, dispatch's inputs and enqueue) and runtime.gc; ids
+    # come from a generator of the tracer's own, not a system call a span
+    "tracing/__init__.py": 47,
     # one docstring sentence names no PR numbers (two lines either side)
     "introspect/__init__.py": 4,
     # a heading names no issue number
@@ -306,10 +315,10 @@ def test_edited_port_keeps_the_original_names(rel):
 def test_every_port_module_of_this_slice_is_pinned():
     """Each module this slice added is a copy or an edited port here, or one
     of the port's own modules (native loader, wire, capture, the driver
-    entry points and the card probe)."""
+    entry points, the card probe and the collector's pause ring)."""
     own = {"native/__init__.py", "solver/__init__.py", "solver/edge.py",
            "solver/wire.py", "utils/capture.py", "entry.py",
-           "utils/cudaenv.py"}
+           "utils/cudaenv.py", "profiling/gcpause.py"}
     slice_dirs = ("batcher", "cache", "chaos", "cloudbackend", "controllers",
                   "coordination", "events", "explain",
                   "fake", "fleet", "incremental", "introspect", "metrics",
