@@ -27,12 +27,12 @@ of torch.profiler's events (time.time_ns), for the split, encode (its
 groups, fold and bounds), dispatch (its inputs and enqueue), transfer and
 decode, then each garbage collection inside the solve (runtime.gc, from
 profiling/gcpause.py). From that record come its encode_ms, dispatch_ms,
-transfer_ms and decode_ms, the tracer's spans, each filed at its start,
-and, as the JAX solver files them, the encode/link/device_exec/decode
-notes of the gap ledger (profiling/) with the rung's shape and `backend`
-(the solver's device type, "cuda" or "cpu"); while the explain plane is
-on, the winning rung and the mask dimensions ride in
-last_solve_info["decision"].
+transfer_ms and decode_ms, gc_full_ms (its generation-2 collections), the
+tracer's spans, each filed at its start, and, as the JAX solver files them,
+the encode/link/device_exec/decode notes of the gap ledger (profiling/)
+with the rung's shape and `backend` (the solver's device type, "cuda" or
+"cpu"); while the explain plane is on, the winning rung and the mask
+dimensions ride in last_solve_info["decision"].
 
 The solver runs on the CUDA card unless it is given device="cpu"; without a
 card and without that argument it raises. NativeSolver is the same encode
@@ -713,6 +713,9 @@ class TorchSolver:
             spans.insert(0, ("solver.split", split[0], split[1]))
         pauses = GC_PAUSES.between(spans[0][1], t4)
         spans += [("runtime.gc", p[0], p[1]) for p in pauses]
+        # the full collections among them, which walk the whole unfrozen heap
+        self.last_solve_info["gc_full_ms"] = sum(
+            p[1] - p[0] for p in pauses if p[2] == 2) / 1e6
         anchor = time.time_ns() - time.perf_counter_ns()
         record = tuple((name, s + anchor, e + anchor) for name, s, e in spans)
         self.last_solve_info["spans"] = record

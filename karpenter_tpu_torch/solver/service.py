@@ -66,6 +66,7 @@ from .. import overload
 from ..overload import eviction as overload_eviction
 from ..overload import metrics as overload_metrics
 from .core import SolveResult, TorchSolver
+from .heap import ResidentHeap
 from . import buckets
 
 log = logging.getLogger("karpenter.solver.service")
@@ -241,6 +242,8 @@ class SolverService:
         self._trace_every = max(1, trace_every)
         self._solve_count = 0
         self._trace_active = False  # single-flight: one profiler at a time
+        # the live heap frozen after each Sync that installed or evicted
+        self._heap = ResidentHeap()
 
     def _mru(self) -> "tuple[Optional[TorchSolver], int, int]":
         """(solver, seqnum, cat_hash) of the most recently used entry.
@@ -334,7 +337,7 @@ class SolverService:
         return {"installs": installs, "evictions": evictions,
                 "thrash_events": thrash, "thrash_ratio": round(ratio, 4),
                 "window": THRASH_WINDOW, "resident": resident,
-                "probation": probation, "pinned": pinned}
+                "probation": probation, "pinned": pinned, **self._heap.stats()}
 
     def _device_context(self):
         """The process-lifetime mesh context (parallel/sharded
@@ -393,8 +396,12 @@ class SolverService:
         (key[0]), device_count, mesh, warmed_buckets."""
         with TRACER.start_span("solver.service.Sync", context=trace_context,
                                types=len(catalog.types)):
-            return self._sync_traced(key, catalog, list(provisioners),
-                                     warm_pod_counts)
+            reply = self._sync_traced(key, catalog, list(provisioners),
+                                      warm_pod_counts)
+            with self._lock:
+                counts = self._installs, self._evictions
+            self._heap.settle(*counts)  # outside the lock: Health answers
+            return reply
 
     def _sync_traced(self, key, catalog: Catalog, provisioners,
                      warm_pod_counts) -> dict:

@@ -181,8 +181,10 @@ EDITED = {
     # the core/edge split: RPC methods over the protobuf-free core, grpc
     # moved to solver/edge.py, torch.profiler for jax.profiler, the device
     # type in Health, the process's shared mesh context, which raises where
-    # the JAX package would serve single-chip
-    "solver/service.py": 713,
+    # the JAX package would serve single-chip; the live heap frozen after
+    # each Sync that installed or evicted (solver/heap.py), its counts in
+    # eviction_stats()
+    "solver/service.py": 722,
     # the method table names message classes; docstrings name the port
     "solver/client.py": 6,
     # torch.distributed for GSPMD: one process per rank, the collectives
@@ -315,10 +317,11 @@ def test_edited_port_keeps_the_original_names(rel):
 def test_every_port_module_of_this_slice_is_pinned():
     """Each module this slice added is a copy or an edited port here, or one
     of the port's own modules (native loader, wire, capture, the driver
-    entry points, the card probe and the collector's pause ring)."""
+    entry points, the card probe, the collector's pause ring and the
+    service's heap freeze)."""
     own = {"native/__init__.py", "solver/__init__.py", "solver/edge.py",
            "solver/wire.py", "utils/capture.py", "entry.py",
-           "utils/cudaenv.py", "profiling/gcpause.py"}
+           "utils/cudaenv.py", "profiling/gcpause.py", "solver/heap.py"}
     slice_dirs = ("batcher", "cache", "chaos", "cloudbackend", "controllers",
                   "coordination", "events", "explain",
                   "fake", "fleet", "incremental", "introspect", "metrics",

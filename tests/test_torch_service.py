@@ -25,8 +25,8 @@ Four parts:
   fed the same Sync and Solve messages (drawn from a numpy seed) give
   equal SolveResponses apart from the timings (solve_ms, transfer_ms),
   routing and compile_cache, and the same LRU, probation and
-  eviction_stats() over a churn of 8 catalogs, with the overload plane
-  off and on.
+  eviction_stats() (the port's heap-freeze counts aside) over a churn of 8
+  catalogs, with the overload plane off and on.
 * The CLI: `solver-serve --device cpu` serves Health in its own process,
   and `controller --simulate --solver ADDR --device cpu` solves through it.
 """
@@ -323,7 +323,8 @@ def test_lockstep_services_answer_the_same_messages(plane_on, monkeypatch):
     probationers their residency, and a Solve after each Sync: equal
     SyncResponses, SolveResponses equal but for timings, routing and
     compile_cache, and the same resident and probation keys and
-    eviction_stats() after every step."""
+    eviction_stats() after every step, but for the port's heap-freeze
+    counts, which only the port keeps."""
     monkeypatch.delenv("KARPENTER_TPU_HBM_CAPACITY_BYTES", raising=False)
     jsvc_mod, psvc_mod = m(JAX, "solver.service"), m(PORT, "solver.service")
     pb = m(PORT, "solver.solver_pb2")
@@ -349,7 +350,15 @@ def test_lockstep_services_answer_the_same_messages(plane_on, monkeypatch):
             assert sp.routing == "cpu" and sp.compile_cache in ("hit", "miss")
             assert list(jsvc._cache) == list(psvc._cache), step
             assert list(jsvc._probation) == list(psvc._probation), step
-            assert jsvc.eviction_stats() == psvc.eviction_stats(), step
+            pstats = psvc.eviction_stats()
+            # the port alone freezes its heap, after each Sync that
+            # installed or evicted, the first and the evicting ones whole
+            heap = {k: pstats.pop(k) for k in (
+                "heap_freezes", "heap_full_collects", "heap_frozen")}
+            assert jsvc.eviction_stats() == pstats, step
+            assert 1 <= heap["heap_full_collects"] <= heap["heap_freezes"] \
+                <= pstats["installs"] + pstats["evictions"], step
+            assert heap["heap_frozen"] > 0, step
         stats = psvc.eviction_stats()
         assert stats["evictions"] > 0 and stats["installs"] > 4
         if plane_on:
