@@ -11,7 +11,8 @@ Port of karpenter_tpu/solver/core.py (TPUSolver) to PyTorch. A solve runs:
    hand-written CUDA kernel (ops/open_claim.py), two launches a step;
 5. one .cpu() read brings back the flat int32 buffer, the solve's only
    device sync;
-6. decode turns it into node decisions.
+6. decode turns it into node decisions, and _fill_counts reads off the same
+   buffer what the open-claim fill placed (fill_pods, fill_rows).
 
 solve_many runs a wave of independent problems: same-shape problems fold
 into one lane pack per bucket (K lanes, padded to the wave ladder), and
@@ -326,7 +327,7 @@ class TorchSolver:
         both rounds' phase notes file against this one wall; the affinity
         split and the round-2 carry are host problem preparation (encode),
         the merge is decode. last_solve_info["spans"] holds both rounds'
-        span records, and its phase times and steps are their sums."""
+        span records, and its phase times and counts are their sums."""
         with GAP_LEDGER.solve_scope("solver"):
             t0 = time.perf_counter_ns()
             primary, deferred = split_deferred_pods(pods)
@@ -353,7 +354,8 @@ class TorchSolver:
                                     option_mask=option_mask)
             info = self.last_solve_info
             summed = {k: first[k] + v for k, v in info.items()
-                      if k.endswith("_ms") or k == "steps"}
+                      if k.endswith("_ms")
+                      or k in ("steps", "fill_pods", "fill_rows")}
             info.update(summed, rounds=2)
             TRACER.annotate(**summed, rounds=2)
             if "spans" in first:
@@ -647,8 +649,9 @@ class TorchSolver:
             GAP_LEDGER.note_device_event(span.seconds())
         device_count = (self._mesh_ctx.device_count if route == "sharded"
                         else 1)
-        out = decode(enc, unflatten_result(host, *plan),
-                     [e.name for e in existing])
+        result = unflatten_result(host, *plan)
+        out = decode(enc, result, [e.name for e in existing])
+        fill_pods, fill_rows = _fill_counts(result.assign, n_eff)
         t4 = time.perf_counter_ns()
         pv = int(enc.group_feas.shape[1])
         flags = (enc.ex_cap is not None, enc.group_origin is not None,
@@ -677,6 +680,8 @@ class TorchSolver:
             "slots": plan.slots,
             "res_width": int(fields["group_vec"].shape[1]),
             "steps": n_eff,
+            "fill_pods": fill_pods,
+            "fill_rows": fill_rows,
             "rounds": 1,
             "compile_cache": compile_cache,
             "device_count": device_count,
@@ -727,7 +732,9 @@ class TorchSolver:
                                    "misses": misses},
             "solver.dispatch.execute": {"compile_cache": compile_cache,
                                         "bucket": plan.label()},
-            "solver.dispatch.enqueue": {"steps": n_eff}}, pauses, anchor)
+            "solver.dispatch.enqueue": {"steps": n_eff, "fill_pods": fill_pods,
+                                        "fill_rows": fill_rows}},
+            pauses, anchor)
         tb_shape = enc.grid.tiebreak.shape
         GAP_LEDGER.annotate(
             bucket=plan.label(), route=route,
@@ -1044,6 +1051,24 @@ def _stack_pack_inputs(members: "list[dict]") -> dict:
             or first[name] is None
             else np.stack([m[name] for m in members])
             for name in PackInputs._fields}
+
+
+def _fill_counts(assign: np.ndarray, n_eff: int) -> "tuple[int, int]":
+    """What a pack's open-claim fill did, from its host-side assign matrix
+    ([G, N] pods per group and claim slot): (fill_pods, fill_rows).
+
+    A slot's opener is the first group with pods on it; step 3 of that
+    group's pack step opened it, and every later group's pods on it came
+    from step 2, the fill. fill_pods counts those pods; fill_rows counts
+    the claim rows open when each of the n_eff steps' fill ran (a slot
+    opened by step g is open for steps g + 1 .. n_eff - 1)."""
+    if n_eff < 2:
+        return 0, 0
+    # seen[g, n]: a group up to g has pods on slot n, so the slot was open
+    # when step g + 1's fill ran
+    seen = np.logical_or.accumulate(assign[:n_eff - 1] > 0, axis=0)
+    fill_pods = int((assign[1:n_eff] * seen).sum(dtype=np.int64))
+    return fill_pods, int(np.count_nonzero(seen))
 
 
 def decode(enc: EncodedProblem, result: PackResult,
