@@ -31,10 +31,10 @@ ANNOTATION_POD_DELETION_COST = "controller.kubernetes.io/pod-deletion-cost"
 # group-key interning (see PodSpec.group_token). Tokens come from a monotonic
 # counter and are never reused; clearing the table (pathological spec churn)
 # bumps an EPOCH, and stamped tokens from older epochs are re-interned on next
-# read. Invariant: at any instant, token equality <=> group-key equality
-# across all live specs — so group_pods stays a pure function of the pod list
-# (the solver wire protocol depends on client and server deriving identical
-# group partitions from identical pods).
+# read (group_pods regroups such pods on content). Invariant: at any instant,
+# token equality <=> group-key equality across all live specs — so group_pods
+# stays a pure function of the pod list (the solver wire protocol depends on
+# client and server deriving identical group partitions from identical pods).
 import itertools as _itertools
 import threading as _threading
 
@@ -43,6 +43,8 @@ _group_key_counter = _itertools.count()
 _group_key_epoch = 0
 _group_key_lock = _threading.Lock()
 _GROUP_KEY_TABLE_MAX = 1 << 20
+# per-thread running totals of group_pods' work (see group_counts)
+_group_counts = _threading.local()
 
 
 def _intern_group_key(key) -> "tuple[int, int]":
@@ -172,11 +174,13 @@ class PodSpec:
 
     def group_key(self):
         """Pods with equal group keys are interchangeable for scheduling.
-        Memoized per instance (frozen dataclass) — grouping a 10k-pod batch
-        is on the host-side critical path of every scheduling cycle."""
-        k = self.__dict__.get("_group_key")
-        if k is not None:
-            return k
+        Memoized per instance (frozen dataclass) in the pod's one stamp
+        attribute, `_group` = (token, epoch, key), which group_pods shares
+        among a group's pods; a key memoized here alone carries epoch -1,
+        which no table epoch equals."""
+        s = getattr(self, "_group", None)
+        if s is not None:
+            return s[2]
         k = (
             self.requests,
             self.requirements.canonical(),  # freezes: later in-place mutation raises
@@ -192,7 +196,7 @@ class PodSpec:
             # selectors would balance the union instead of each deployment
             self.labels,
         )
-        object.__setattr__(self, "_group_key", k)
+        object.__setattr__(self, "_group", (None, -1, k))
         return k
 
     def group_token(self) -> int:
@@ -201,15 +205,16 @@ class PodSpec:
         The group-key tuple nests requirements/tolerations/topology and
         Python re-hashes it on EVERY dict operation — at 50k pods that
         hashing alone dominates host encode (bench config 4). The token is
-        interned once per distinct key and memoized per instance, so
+        interned once per distinct key and stamped on the instance, so
         steady-state grouping costs one attribute read + int-dict op per
         pod. Token equality is equivalent to key equality — stamps from a
         cleared table epoch are re-interned (see _intern_group_key)."""
-        cached = self.__dict__.get("_group_token")
-        if cached is not None and cached[1] == _group_key_epoch:
-            return cached[0]
-        t, epoch = _intern_group_key(self.group_key())
-        object.__setattr__(self, "_group_token", (t, epoch))
+        s = getattr(self, "_group", None)
+        if s is not None and s[1] == _group_key_epoch:
+            return s[0]
+        k = self.group_key()
+        t, epoch = _intern_group_key(k)
+        object.__setattr__(self, "_group", (t, epoch, k))
         return t
 
 
@@ -259,41 +264,93 @@ class PodGroup:
         return self.spec.resource_vector()
 
 
+def group_counts() -> "tuple[int, int, int]":
+    """This thread's running totals of group_pods' work: pods grouped on
+    their content key, pods grouped on their stamp, and keys merged into a
+    group an earlier key began. A caller reads them before and after the
+    calls it attributes."""
+    return getattr(_group_counts, "totals", (0, 0, 0))
+
+
 def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
-    # int-token keys, not the key tuples: re-hashing the nested tuples per
-    # lookup dominated 50k-pod host encode (see PodSpec.group_token).
+    # A pod stamped in the table's current epoch (see PodSpec.group_token)
+    # is grouped on its token: one attribute read and an int-dict op. Any
+    # other pod is grouped on a flat content key built inline: group_key()'s
+    # fields as they are, the requirements as their per-key entries in
+    # insertion order. No canonical form, intern, lock or memo per pod.
+    # The content key is finer than group_key(): requirements added in
+    # another key order, or In sets that fold bounds, canonicalise equal.
+    # So once per distinct content key its first pod's group_key() is
+    # interned, keys with equal tokens merge (names back in input order),
+    # and the key's pods share one (token, epoch, key) stamp, their
+    # requirements frozen as group_key() freezes them (hashing the content
+    # key froze the preferences), so the next pass over them reads stamps.
+    # The stamp is a pod's one attribute beyond its fields: on CPython 3.12
+    # a second did not fit the instance's inline attribute slots, and every
+    # pod then allocated a dict (stamping cost 4x).
     # Token equality == key equality only WITHIN one table epoch: if the
     # intern table clears mid-pass (2^20 distinct keys, or a concurrent
-    # thread's clear), a token already used as a dict key here could split
-    # from an equal-key pod interned after the clear. Snapshot the epoch
-    # around the pass and redo it on the (rare) mismatch so the result is
-    # always a single-epoch partition — a pure function of the pod list.
+    # thread's clear), a token already used here could split from an
+    # equal-key pod interned after the clear. Snapshot the epoch around the
+    # pass and redo it on the (rare) mismatch so the result is always a
+    # single-epoch partition — a pure function of the pod list.
     # Bounded retries: under epoch churn faster than a pass (many threads
     # interning disjoint key floods), fall back to grouping by the raw key
     # tuples — slower, but correct without any epoch assumption.
+    stamp_attr = object.__setattr__
     for _ in range(3):
         epoch_before = _group_key_epoch
-        # accumulate only the name lists (count == len) and a representative
-        # pod per token; building PodGroups inside the loop costs two extra
-        # attribute ops per pod, and with the warm-path token read inlined
-        # (a bound-method call per pod is ~1ms at 10k pods) this loop is the
-        # per-cycle host-encode floor
-        names: "dict[int, list[str]]" = {}
-        first: "dict[int, PodSpec]" = {}
-        get = names.get
+        members: "dict[object, list[PodSpec]]" = {}
+        get = members.get
         for p in pods:
-            c = p.__dict__.get("_group_token")
-            tok = c[0] if (c is not None and c[1] == epoch_before) \
-                else p.group_token()
-            lst = get(tok)
-            if lst is None:
-                names[tok] = [p.name]
-                first[tok] = p
+            c = getattr(p, "_group", None)
+            if c is not None and c[1] == epoch_before:
+                k = c[0]
             else:
-                lst.append(p.name)
-        if _group_key_epoch == epoch_before:
-            return [PodGroup(spec=first[t], count=len(ns), pod_names=ns)
-                    for t, ns in names.items()]
+                r = p.requirements._by_key
+                k = (p.requests, tuple(r.values()) if r else (),
+                     p.preferences, p.tolerations, p.topology,
+                     p.anti_affinity_hostname, p.anti_affinity_zone,
+                     p.pod_affinity, p.pod_anti_affinity, p.labels)
+            lst = get(k)
+            if lst is None:
+                members[k] = [p]
+            else:
+                lst.append(p)
+        # each key's token, and the keys (in first-seen order) of each token
+        keys_of: "dict[int, list[list[PodSpec]]]" = {}
+        stamped = 0
+        for k, lst in members.items():
+            if k.__class__ is int:
+                tok = k
+                stamped += len(lst)
+            else:
+                key = lst[0].group_key()
+                tok, epoch = _intern_group_key(key)
+                stamp = (tok, epoch, key)
+                for p in lst:
+                    stamp_attr(p, "_group", stamp)
+                    p.requirements._frozen = True
+            ks = keys_of.get(tok)
+            if ks is None:
+                keys_of[tok] = [lst]
+            else:
+                ks.append(lst)
+        if _group_key_epoch != epoch_before:
+            continue
+        joined = {t: [] for t, ks in keys_of.items() if len(ks) > 1}
+        if joined:
+            # every pod now carries its group's stamp
+            for p in pods:
+                ns = joined.get(p._group[0])
+                if ns is not None:
+                    ns.append(p.name)
+        out = []
+        for t, ks in keys_of.items():
+            ns = joined[t] if len(ks) > 1 else [p.name for p in ks[0]]
+            out.append(PodGroup(spec=ks[0][0], count=len(ns), pod_names=ns))
+        _count(len(pods) - stamped, stamped, len(members) - len(keys_of))
+        return out
     bykey: "dict[object, PodGroup]" = {}
     for p in pods:
         g = bykey.get(p.group_key())
@@ -302,4 +359,10 @@ def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
         else:
             g.count += 1
             g.pod_names.append(p.name)
+    _count(len(pods), 0, 0)
     return list(bykey.values())
+
+
+def _count(keyed: int, stamped: int, merged: int) -> None:
+    k, s, m = group_counts()
+    _group_counts.totals = (k + keyed, s + stamped, m + merged)

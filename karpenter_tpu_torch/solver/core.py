@@ -33,7 +33,10 @@ tracer's spans, each filed at its start, and, as the JAX solver files them,
 the encode/link/device_exec/decode notes of the gap ledger (profiling/)
 with the rung's shape and `backend` (the solver's device type, "cuda" or
 "cpu"); while the explain plane is on, the winning rung and the mask
-dimensions ride in last_solve_info["decision"].
+dimensions ride in last_solve_info["decision"]. The encode's grouping
+counts (models/pod.py group_pods: pods grouped on their content key, pods
+grouped on their stamp, content keys merged) ride in last_solve_info as
+group_keyed, group_stamped and group_merged, and on the groups span.
 
 The solver runs on the CUDA card unless it is given device="cpu"; without a
 card and without that argument it raises. NativeSolver is the same encode
@@ -79,7 +82,7 @@ from ..apis.provisioner import Provisioner
 from ..device import resolve_device
 from ..models.encode import EncodedProblem, OptionGrid, build_grid, encode_problem
 from ..models.instancetype import Catalog
-from ..models.pod import PodSpec
+from ..models.pod import PodSpec, group_counts
 from ..ops.packer import (INT_BIG, PackInputs, PackResult,
                           lane_inputs_from_numpy, n_eff_of, pack_flat,
                           pack_flat_lanes, pack_inputs_from_numpy,
@@ -169,6 +172,15 @@ def _file_spans(record: tuple, attrs: dict, pauses: list,
     for (name, s, e), (_, _, gen, collected) in zip(record[n:], pauses):
         TRACER.record_span(name, (e - s) / 1e9, start_ts=s / 1e9,
                            generation=gen, collected=collected)
+
+
+def _grouping(before: "tuple[int, int, int]") -> dict:
+    """group_pods' counts on this thread since `before` (a group_counts()
+    read): pods grouped on their content key, pods grouped on their stamp,
+    and content keys merged into a group an earlier key began."""
+    keyed, stamped, merged = (a - b for a, b in zip(group_counts(), before))
+    return {"group_keyed": keyed, "group_stamped": stamped,
+            "group_merged": merged}
 
 
 def _first_dispatch(key: tuple) -> bool:
@@ -355,7 +367,9 @@ class TorchSolver:
             info = self.last_solve_info
             summed = {k: first[k] + v for k, v in info.items()
                       if k.endswith("_ms")
-                      or k in ("steps", "fill_pods", "fill_rows")}
+                      or k in ("steps", "fill_pods", "fill_rows",
+                               "group_keyed", "group_stamped",
+                               "group_merged")}
             info.update(summed, rounds=2)
             TRACER.annotate(**summed, rounds=2)
             if "spans" in first:
@@ -618,6 +632,7 @@ class TorchSolver:
         # on perf_counter_ns's clock; `split` is solve()'s (start, end,
         # pods) of the affinity split, which round 1 files.
         marks: list = []
+        counts = group_counts()
         t0 = time.perf_counter_ns()
         enc = encode_problem(
             self.catalog, self.provisioners, pods, existing,
@@ -626,6 +641,7 @@ class TorchSolver:
             marks=marks,
         )
         t1 = time.perf_counter_ns()
+        grouping = _grouping(counts)
         G, Ne = enc.group_vec.shape[0], enc.ex_alloc.shape[0]
         fields, plan = build_pack_inputs(enc, self._dev_alloc_t,
                                          self._dev_tiebreak)
@@ -682,6 +698,7 @@ class TorchSolver:
             "steps": n_eff,
             "fill_pods": fill_pods,
             "fill_rows": fill_rows,
+            **grouping,
             "rounds": 1,
             "compile_cache": compile_cache,
             "device_count": device_count,
@@ -727,7 +744,8 @@ class TorchSolver:
         _file_spans(record, {
             "solver.split": {"pods": split[2] if split else 0},
             "solver.encode.groups": {"pods": len(pods),
-                                     "groups": len(enc.groups)},
+                                     "groups": len(enc.groups),
+                                     **grouping},
             "solver.encode.fold": {"hits": len(enc.groups) - misses,
                                    "misses": misses},
             "solver.dispatch.execute": {"compile_cache": compile_cache,
@@ -795,6 +813,7 @@ class NativeSolver(TorchSolver):
                           split[1] + anchor),),
                         {"solver.split": {"pods": split[2]}}, [], anchor)
 
+        counts = group_counts()
         t0 = time.perf_counter()
         enc = encode_problem(
             self.catalog, self.provisioners, pods, existing,
@@ -802,6 +821,7 @@ class NativeSolver(TorchSolver):
             group_cache=self._group_cache, option_mask=option_mask,
         )
         t1 = time.perf_counter()
+        grouping = _grouping(counts)
         inputs = PackInputs(
             alloc_t=enc.alloc_t, tiebreak=enc.tiebreak,
             group_vec=enc.group_vec, group_count=enc.group_count,
@@ -827,6 +847,7 @@ class NativeSolver(TorchSolver):
             "shape": (enc.group_vec.shape[0], enc.n_slots,
                       enc.ex_alloc.shape[0]),
             "steps": 0,  # no pack steps: the scan is one host call
+            **grouping,
             "rounds": 1,
         }
         return out
