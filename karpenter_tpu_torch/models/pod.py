@@ -43,8 +43,6 @@ _group_key_counter = _itertools.count()
 _group_key_epoch = 0
 _group_key_lock = _threading.Lock()
 _GROUP_KEY_TABLE_MAX = 1 << 20
-# per-thread running totals of group_pods' work (see group_counts)
-_group_counts = _threading.local()
 
 
 def _intern_group_key(key) -> "tuple[int, int]":
@@ -264,14 +262,6 @@ class PodGroup:
         return self.spec.resource_vector()
 
 
-def group_counts() -> "tuple[int, int, int]":
-    """This thread's running totals of group_pods' work: pods grouped on
-    their content key, pods grouped on their stamp, and keys merged into a
-    group an earlier key began. A caller reads them before and after the
-    calls it attributes."""
-    return getattr(_group_counts, "totals", (0, 0, 0))
-
-
 def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
     # A pod stamped in the table's current epoch (see PodSpec.group_token)
     # is grouped on its token: one attribute read and an int-dict op. Any
@@ -319,11 +309,9 @@ def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
                 lst.append(p)
         # each key's token, and the keys (in first-seen order) of each token
         keys_of: "dict[int, list[list[PodSpec]]]" = {}
-        stamped = 0
         for k, lst in members.items():
             if k.__class__ is int:
                 tok = k
-                stamped += len(lst)
             else:
                 key = lst[0].group_key()
                 tok, epoch = _intern_group_key(key)
@@ -349,7 +337,6 @@ def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
         for t, ks in keys_of.items():
             ns = joined[t] if len(ks) > 1 else [p.name for p in ks[0]]
             out.append(PodGroup(spec=ks[0][0], count=len(ns), pod_names=ns))
-        _count(len(pods) - stamped, stamped, len(members) - len(keys_of))
         return out
     bykey: "dict[object, PodGroup]" = {}
     for p in pods:
@@ -359,10 +346,4 @@ def group_pods(pods: "list[PodSpec]") -> "list[PodGroup]":
         else:
             g.count += 1
             g.pod_names.append(p.name)
-    _count(len(pods), 0, 0)
     return list(bykey.values())
-
-
-def _count(keyed: int, stamped: int, merged: int) -> None:
-    k, s, m = group_counts()
-    _group_counts.totals = (k + keyed, s + stamped, m + merged)

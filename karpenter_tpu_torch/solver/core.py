@@ -27,16 +27,14 @@ record, last_solve_info["spans"]: (name, start_ns, end_ns) on the clock
 of torch.profiler's events (time.time_ns), for the split, encode (its
 groups, fold and bounds), dispatch (its inputs and enqueue), transfer and
 decode, then each garbage collection inside the solve (runtime.gc, from
-profiling/gcpause.py). From that record come its encode_ms, dispatch_ms,
+profiling/gcpause.py). _SPANS names each span's parent, gap-ledger phase
+and info time once. From that record come its encode_ms, dispatch_ms,
 transfer_ms and decode_ms, gc_full_ms (its generation-2 collections), the
 tracer's spans, each filed at its start, and, as the JAX solver files them,
 the encode/link/device_exec/decode notes of the gap ledger (profiling/)
 with the rung's shape and `backend` (the solver's device type, "cuda" or
 "cpu"); while the explain plane is on, the winning rung and the mask
-dimensions ride in last_solve_info["decision"]. The encode's grouping
-counts (models/pod.py group_pods: pods grouped on their content key, pods
-grouped on their stamp, content keys merged) ride in last_solve_info as
-group_keyed, group_stamped and group_merged, and on the groups span.
+dimensions ride in last_solve_info["decision"].
 
 The solver runs on the CUDA card unless it is given device="cpu"; without a
 card and without that argument it raises. NativeSolver is the same encode
@@ -82,7 +80,7 @@ from ..apis.provisioner import Provisioner
 from ..device import resolve_device
 from ..models.encode import EncodedProblem, OptionGrid, build_grid, encode_problem
 from ..models.instancetype import Catalog
-from ..models.pod import PodSpec, group_counts
+from ..models.pod import PodSpec
 from ..ops.packer import (INT_BIG, PackInputs, PackResult,
                           lane_inputs_from_numpy, n_eff_of, pack_flat,
                           pack_flat_lanes, pack_inputs_from_numpy,
@@ -132,22 +130,34 @@ _DISPATCHED: "set[tuple]" = set()
 _DISPATCHED_LOCK = threading.Lock()
 
 
-# a solve's span record: each child's parent, and the gap-ledger phase and
-# lane of each span the ledger attributes
-_PARENTS = {
-    "solver.encode.groups": "solver.encode",
-    "solver.encode.fold": "solver.encode",
-    "solver.encode.bounds": "solver.encode",
-    "solver.dispatch.inputs": "solver.dispatch.execute",
-    "solver.dispatch.enqueue": "solver.dispatch.execute",
+# a solve's span record, in its order: each span's parent, its gap-ledger
+# (phase, lane), and the last_solve_info time (ms) it yields
+_SPANS = {
+    "solver.split": (None, ("encode", "encode"), None),
+    "solver.encode": (None, ("encode", "encode"), "encode_ms"),
+    "solver.encode.groups": ("solver.encode", None, None),
+    "solver.encode.fold": ("solver.encode", None, None),
+    "solver.encode.bounds": ("solver.encode", None, None),
+    "solver.dispatch.execute": (None, ("link", "solver"), "dispatch_ms"),
+    "solver.dispatch.inputs": ("solver.dispatch.execute", None, None),
+    "solver.dispatch.enqueue": ("solver.dispatch.execute", None, None),
+    "solver.transfer": (None, ("device_exec", "device"), "transfer_ms"),
+    "solver.decode": (None, ("decode", "encode"), "decode_ms"),
 }
-_LEDGER = {
-    "solver.split": ("encode", "encode"),
-    "solver.encode": ("encode", "encode"),
-    "solver.dispatch.execute": ("link", "solver"),
-    "solver.transfer": ("device_exec", "device"),
-    "solver.decode": ("decode", "encode"),
-}
+# a round's counts that a two-round solve sums, with every *_ms time
+_ADDITIVE = ("steps", "fill_pods", "fill_rows")
+
+
+def _fold_rounds(first: dict, info: dict) -> dict:
+    """Fold round 1's last_solve_info into round 2's `info`, in place:
+    every *_ms time and every _ADDITIVE count summed, the span records
+    joined, rounds=2; the rest is round 2's. -> the summed entries."""
+    summed = {k: first[k] + v for k, v in info.items()
+              if k.endswith("_ms") or k in _ADDITIVE}
+    info.update(summed, rounds=2)
+    if "spans" in first:
+        info["spans"] = first["spans"] + info["spans"]
+    return summed
 
 
 def _file_spans(record: tuple, attrs: dict, pauses: list,
@@ -160,27 +170,19 @@ def _file_spans(record: tuple, attrs: dict, pauses: list,
     made: dict = {}
     n = len(record) - len(pauses)
     for name, s, e in record[:n]:
+        parent, ledger, _ = _SPANS[name]
         made[name] = TRACER.record_span(
-            name, (e - s) / 1e9, parent=made.get(_PARENTS.get(name)),
+            name, (e - s) / 1e9, parent=made.get(parent),
             start_ts=s / 1e9, **attrs.get(name, {}))
-        if name in _LEDGER:
+        if ledger is not None:
             # seconds as a difference of the two perf_counter floats, so
             # that one phase's start lands on the last one's end exactly
-            phase, lane = _LEDGER[name]
+            phase, lane = ledger
             s_pc, e_pc = (s - anchor) / 1e9, (e - anchor) / 1e9
             GAP_LEDGER.note(phase, e_pc - s_pc, lane=lane, end_pc=e_pc)
     for (name, s, e), (_, _, gen, collected) in zip(record[n:], pauses):
         TRACER.record_span(name, (e - s) / 1e9, start_ts=s / 1e9,
                            generation=gen, collected=collected)
-
-
-def _grouping(before: "tuple[int, int, int]") -> dict:
-    """group_pods' counts on this thread since `before` (a group_counts()
-    read): pods grouped on their content key, pods grouped on their stamp,
-    and content keys merged into a group an earlier key began."""
-    keyed, stamped, merged = (a - b for a, b in zip(group_counts(), before))
-    return {"group_keyed": keyed, "group_stamped": stamped,
-            "group_merged": merged}
 
 
 def _first_dispatch(key: tuple) -> bool:
@@ -364,16 +366,8 @@ class TorchSolver:
             res2 = self._solve_once(deferred, carried + pseudo,
                                     daemon_overhead, n_slots,
                                     option_mask=option_mask)
-            info = self.last_solve_info
-            summed = {k: first[k] + v for k, v in info.items()
-                      if k.endswith("_ms")
-                      or k in ("steps", "fill_pods", "fill_rows",
-                               "group_keyed", "group_stamped",
-                               "group_merged")}
-            info.update(summed, rounds=2)
+            summed = _fold_rounds(first, self.last_solve_info)
             TRACER.annotate(**summed, rounds=2)
-            if "spans" in first:
-                info["spans"] = first["spans"] + info["spans"]
             t2 = time.perf_counter()
             merged = _merge_rounds(res, res2, {p.name: i for i, p in
                                                enumerate(pseudo)})
@@ -632,7 +626,6 @@ class TorchSolver:
         # on perf_counter_ns's clock; `split` is solve()'s (start, end,
         # pods) of the affinity split, which round 1 files.
         marks: list = []
-        counts = group_counts()
         t0 = time.perf_counter_ns()
         enc = encode_problem(
             self.catalog, self.provisioners, pods, existing,
@@ -641,7 +634,6 @@ class TorchSolver:
             marks=marks,
         )
         t1 = time.perf_counter_ns()
-        grouping = _grouping(counts)
         G, Ne = enc.group_vec.shape[0], enc.ex_alloc.shape[0]
         fields, plan = build_pack_inputs(enc, self._dev_alloc_t,
                                          self._dev_tiebreak)
@@ -684,11 +676,28 @@ class TorchSolver:
         buckets.observe_plan(plan, G, enc.n_slots, Ne, route)
         self.last_shape_key = (G, enc.n_slots, Ne, pv) + flags
         self.last_flat = host
+        # the solve's span record, the one source of its phase times, of the
+        # tracer's phase spans (children of the current solve span; kernels
+        # are built before the first solve, so dispatch is always an
+        # execute, never a compile) and of the gap ledger's notes, each
+        # pinned at its phase boundary so the critical plane sees the serial
+        # chain encode -> link -> fetch -> decode (the .cpu() read is the
+        # device sync, so the transfer is the device_exec evidence)
+        g0, g1, f1, b1, misses = marks
+        spans = [("solver.encode", t0, t1),
+                 ("solver.encode.groups", g0, g1),
+                 ("solver.encode.fold", g1, f1),
+                 ("solver.encode.bounds", f1, b1),
+                 ("solver.dispatch.execute", t1, t2),
+                 ("solver.dispatch.inputs", t1, t_in),
+                 ("solver.dispatch.enqueue", t_in, t2),
+                 ("solver.transfer", t2, t3),
+                 ("solver.decode", t3, t4)]
+        if split is not None:
+            spans.insert(0, ("solver.split", split[0], split[1]))
         self.last_solve_info = {
-            "encode_ms": (t1 - t0) / 1e6,
-            "dispatch_ms": (t2 - t1) / 1e6,
-            "transfer_ms": (t3 - t2) / 1e6,
-            "decode_ms": (t4 - t3) / 1e6,
+            **{ms: (e - s) / 1e6 for name, s, e in spans
+               if (ms := _SPANS[name][2])},
             "routing": (f"{self.device.type}-sharded" if route == "sharded"
                         else self.device.type),
             "bucket": plan.label(),
@@ -698,7 +707,6 @@ class TorchSolver:
             "steps": n_eff,
             "fill_pods": fill_pods,
             "fill_rows": fill_rows,
-            **grouping,
             "rounds": 1,
             "compile_cache": compile_cache,
             "device_count": device_count,
@@ -713,26 +721,7 @@ class TorchSolver:
                 "rung": plan.rung(),
                 "dimensions": MASK_DIMENSIONS,
             }
-        # the solve's span record, the one source of the tracer's phase
-        # spans (children of the current solve span; kernels are built
-        # before the first solve, so dispatch is always an execute, never a
-        # compile) and of the gap ledger's notes, each pinned at its phase
-        # boundary so the critical plane sees the serial chain encode ->
-        # link -> fetch -> decode (the .cpu() read is the device sync, so
-        # the transfer is the device_exec evidence); the collector's pauses
-        # inside the solve follow
-        g0, g1, f1, b1, misses = marks
-        spans = [("solver.encode", t0, t1),
-                 ("solver.encode.groups", g0, g1),
-                 ("solver.encode.fold", g1, f1),
-                 ("solver.encode.bounds", f1, b1),
-                 ("solver.dispatch.execute", t1, t2),
-                 ("solver.dispatch.inputs", t1, t_in),
-                 ("solver.dispatch.enqueue", t_in, t2),
-                 ("solver.transfer", t2, t3),
-                 ("solver.decode", t3, t4)]
-        if split is not None:
-            spans.insert(0, ("solver.split", split[0], split[1]))
+        # the collector's pauses inside the solve follow its phases
         pauses = GC_PAUSES.between(spans[0][1], t4)
         spans += [("runtime.gc", p[0], p[1]) for p in pauses]
         # the full collections among them, which walk the whole unfrozen heap
@@ -744,8 +733,7 @@ class TorchSolver:
         _file_spans(record, {
             "solver.split": {"pods": split[2] if split else 0},
             "solver.encode.groups": {"pods": len(pods),
-                                     "groups": len(enc.groups),
-                                     **grouping},
+                                     "groups": len(enc.groups)},
             "solver.encode.fold": {"hits": len(enc.groups) - misses,
                                    "misses": misses},
             "solver.dispatch.execute": {"compile_cache": compile_cache,
@@ -813,7 +801,6 @@ class NativeSolver(TorchSolver):
                           split[1] + anchor),),
                         {"solver.split": {"pods": split[2]}}, [], anchor)
 
-        counts = group_counts()
         t0 = time.perf_counter()
         enc = encode_problem(
             self.catalog, self.provisioners, pods, existing,
@@ -821,7 +808,6 @@ class NativeSolver(TorchSolver):
             group_cache=self._group_cache, option_mask=option_mask,
         )
         t1 = time.perf_counter()
-        grouping = _grouping(counts)
         inputs = PackInputs(
             alloc_t=enc.alloc_t, tiebreak=enc.tiebreak,
             group_vec=enc.group_vec, group_count=enc.group_count,
@@ -847,7 +833,6 @@ class NativeSolver(TorchSolver):
             "shape": (enc.group_vec.shape[0], enc.n_slots,
                       enc.ex_alloc.shape[0]),
             "steps": 0,  # no pack steps: the scan is one host call
-            **grouping,
             "rounds": 1,
         }
         return out

@@ -12,8 +12,12 @@ must `prepare_groups` built on them.
   preferences, tolerations, labels, spread, affinity terms, DaemonSets.
 * Mixed batches of stamped and fresh pods; the intern table's epoch churn;
   a stamped pod's requirements refuse `add`.
-* The three counters (group_keyed, group_stamped, group_merged), through
-  `group_counts` and through a solve's last_solve_info and its span.
+* The stamps a pass leaves: pods grouped on a content key get a stamp of
+  the table's current epoch, one stamp object per content key; merged
+  content keys carry equal tokens; a repeat pass leaves every stamp object
+  as it was.
+* A solve's last_solve_info keys and its groups span, and the fold of a
+  two-round solve's infos (solver/core.py _fold_rounds).
 * The benchmark's 10,000-pod inflate and boutique batches.
 """
 
@@ -29,13 +33,13 @@ import karpenter_tpu.models.pod as jpod
 import karpenter_tpu.oracle.scheduler as jsched
 import karpenter_tpu_torch.models.pod as tpod
 from karpenter_tpu.models.requirements import Requirements as JRequirements
-from karpenter_tpu_torch import profiling
+from karpenter_tpu_torch import explain, profiling
 from karpenter_tpu_torch.apis import wellknown as wk
 from karpenter_tpu_torch.apis.provisioner import Provisioner
 from karpenter_tpu_torch.models.instancetype import Catalog, make_instance_type
 from karpenter_tpu_torch.models.requirements import Requirement
 from karpenter_tpu_torch.oracle.scheduler import ExistingNode, prepare_groups
-from karpenter_tpu_torch.solver.core import TorchSolver
+from karpenter_tpu_torch.solver.core import TorchSolver, _fold_rounds
 from karpenter_tpu_torch.tracing import TRACER
 from test_torch_solver import to_port
 
@@ -78,6 +82,28 @@ def unstamp(pods) -> None:
     for p in pods:
         if hasattr(p, "_group"):
             object.__delattr__(p, "_group")
+
+
+def content_key(p) -> tuple:
+    """group_pods' flat content key of a pod it finds unstamped: group_key()'s
+    fields, the requirements as their per-key entries in insertion order."""
+    return (p.requests, tuple(p.requirements._by_key.values()),
+            p.preferences, p.tolerations, p.topology,
+            p.anti_affinity_hostname, p.anti_affinity_zone,
+            p.pod_affinity, p.pod_anti_affinity, p.labels)
+
+
+def assert_fresh_stamps(pods) -> None:
+    """What one pass leaves on the pods it grouped on their content key: a
+    (token, epoch, key) stamp of the table's current epoch, whose token is
+    the pod's group_token(), and one stamp object per content key."""
+    shared: dict = {}
+    for p in pods:
+        stamp = p._group
+        assert stamp[1] == tpod._group_key_epoch
+        assert p.group_token() == stamp[0]
+        assert shared.setdefault(content_key(p), stamp) is stamp
+    assert len({id(s) for s in shared.values()}) == len(shared)
 
 
 # -- seeded batches, built with the JAX package's classes ----------------------
@@ -167,12 +193,14 @@ def test_mixed_stamped_and_fresh_batches_give_the_same_partition(seed):
     jax_pods, pods = batch(seed)
     want = partition(jpod.group_pods(jax_pods))
     rng = random.Random(seed)
-    tpod.group_pods(rng.sample(pods, len(pods) // 2))
-    keyed, stamped, _ = tpod.group_counts()
+    half = rng.sample(pods, len(pods) // 2)
+    tpod.group_pods(half)
+    stamps = [p._group for p in half]
     assert partition(tpod.group_pods(pods)) == want
-    after = tpod.group_counts()
-    assert (after[0] - keyed, after[1] - stamped) == \
-        (len(pods) - len(pods) // 2, len(pods) // 2)
+    # the stamped half was grouped on its stamps, the rest on content keys
+    assert all(p._group is st for p, st in zip(half, stamps))
+    stamped = {id(p) for p in half}
+    assert_fresh_stamps([p for p in pods if id(p) not in stamped])
 
 
 def _canonical_twins(n: int):
@@ -193,26 +221,31 @@ def test_interleaved_content_keys_merge_in_input_order():
         jpod.make_pod("odd", cpu="1", memory="1Gi")]
     jax_pods.insert(4, jpod.make_pod("odd-2", cpu="1", memory="1Gi"))
     pods = to_port(jax_pods)
-    before = tpod.group_counts()
     got = tpod.group_pods(pods)
-    after = tpod.group_counts()
     assert partition(got) == partition(jpod.group_pods(jax_pods))
     assert [g.pod_names for g in got][0] == [
         p.name for p in pods if p.name.startswith("t-")]
-    # two key orders of one group: one merge
-    assert tuple(a - b for a, b in zip(after, before)) == (11, 0, 1)
+    assert_fresh_stamps(pods)
+    # two key orders of one group: two stamps, merged on one token
+    zone_first, arch_first = pods[0]._group, pods[1]._group
+    assert zone_first is not arch_first
+    assert zone_first[0] == arch_first[0] != pods[-1]._group[0]
 
 
 def test_a_fresh_content_key_merges_into_a_stamped_group():
     jax_pods = _canonical_twins(8)
     pods = to_port(jax_pods)
     tpod.group_pods(pods[1::2])  # stamps the arch-first pods
-    before = tpod.group_counts()
+    stamps = [p._group for p in pods[1::2]]
     got = tpod.group_pods(pods)
-    after = tpod.group_counts()
     assert partition(got) == partition(jpod.group_pods(jax_pods))
     assert got[0].spec is pods[0]
-    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 1)
+    # the stamped pods kept their stamps; the fresh key took one of its own
+    # on the same token
+    assert all(p._group is st for p, st in zip(pods[1::2], stamps))
+    assert_fresh_stamps(pods[::2])
+    assert pods[0]._group is not stamps[0]
+    assert pods[0]._group[0] == stamps[0][0]
 
 
 def test_bound_folded_in_sets_merge():
@@ -236,15 +269,16 @@ def test_labels_still_separate_deployments():
 
 
 def test_counters_on_a_fresh_burst_and_its_repeat():
+    """A fresh burst is grouped on its two content keys and stamped; its
+    repeat reads the stamps and leaves each stamp object as it was."""
     pods = [tpod.make_pod(f"p-{i}", cpu="1" if i % 3 else "250m")
             for i in range(300)]
-    c0 = tpod.group_counts()
     first = partition(tpod.group_pods(pods))
-    c1 = tpod.group_counts()
+    assert_fresh_stamps(pods)
+    stamps = [p._group for p in pods]
+    assert len({id(st) for st in stamps}) == 2
     assert partition(tpod.group_pods(pods)) == first
-    c2 = tpod.group_counts()
-    assert tuple(a - b for a, b in zip(c1, c0)) == (300, 0, 0)
-    assert tuple(a - b for a, b in zip(c2, c1)) == (0, 300, 0)
+    assert all(p._group is st for p, st in zip(pods, stamps))
 
 
 def test_a_stamped_pods_requirements_refuse_add():
@@ -315,7 +349,7 @@ def test_resident_counts_read_the_shared_stamp():
     assert fresh[1].group_key() == pods[1].group_key()
 
 
-# -- the solver's counters -----------------------------------------------------
+# -- what a solve records -------------------------------------------------------
 
 def _solver() -> TorchSolver:
     prov = Provisioner(name="default")
@@ -325,6 +359,9 @@ def _solver() -> TorchSolver:
 
 
 def test_last_solve_info_and_the_groups_span_carry_the_counters():
+    """A single-round solve's last_solve_info holds its phase times, its
+    rung, its pack's counts and its span record, in that order; the groups
+    span carries the pods and groups of the encode."""
     s = _solver()
     pods = to_port(_canonical_twins(6)) + [
         tpod.make_pod(f"p-{i}", cpu="1", memory="1Gi") for i in range(5)]
@@ -333,35 +370,47 @@ def test_last_solve_info_and_the_groups_span_carry_the_counters():
         TRACER.clear()
         s.solve(pods)
         info = s.last_solve_info
-        assert (info["group_keyed"], info["group_stamped"],
-                info["group_merged"]) == (11, 0, 1)
+        assert list(info) == [
+            "encode_ms", "dispatch_ms", "transfer_ms", "decode_ms",
+            "routing", "bucket", "plan", "slots", "res_width", "steps",
+            "fill_pods", "fill_rows", "rounds", "compile_cache",
+            "device_count"] + (["decision"] if explain.enabled() else []) \
+            + ["gc_full_ms", "spans"]
         (span,) = [sp for sp in TRACER.finished_spans()
                    if sp.name == "solver.encode.groups"]
-        assert {k: span.attributes[k] for k in
-                ("group_keyed", "group_stamped", "group_merged")} == \
-            {"group_keyed": 11, "group_stamped": 0, "group_merged": 1}
-        s.solve(pods)
-        info = s.last_solve_info
-        assert (info["group_keyed"], info["group_stamped"],
-                info["group_merged"]) == (0, 11, 0)
+        assert span.attributes == {"pods": 11, "groups": 2}
     finally:
         profiling.set_enabled(prev)
 
 
 def test_a_two_round_solve_sums_the_counters():
-    s = _solver()
-    db = [tpod.make_pod(f"db-{i}", cpu="1", memory="1Gi",
-                        labels=(("app", "db"),)) for i in range(2)]
-    web = [tpod.make_pod(f"s-{i}", cpu="250m", memory="256Mi", pod_affinity=(
-        tpod.PodAffinityTerm(match_labels=(("app", "db"),),
-                             topology_key=wk.LABEL_HOSTNAME),))
-        for i in range(3)]
-    s.solve(db + web)
-    info = s.last_solve_info
-    assert info["rounds"] == 2
-    # the affinity split grouped (and stamped) every pod before round 1
-    assert (info["group_keyed"], info["group_stamped"],
-            info["group_merged"]) == (0, 5, 0)
+    """_fold_rounds folds round 1's info into round 2's: every *_ms time
+    and every additive count round 2 has summed, the span records joined,
+    rounds=2, the rest round 2's."""
+    first = {"encode_ms": 1.5, "dispatch_ms": 2.0, "routing": "cpu",
+             "bucket": "g8", "steps": 3, "fill_pods": 4, "fill_rows": 5,
+             "rounds": 1, "gc_full_ms": 0.25,
+             "spans": (("solver.split", 1, 2), ("solver.encode", 2, 3))}
+    info = {"encode_ms": 10.0, "dispatch_ms": 20.0, "routing": "cpu",
+            "bucket": "g16", "steps": 30, "fill_pods": 40, "fill_rows": 50,
+            "rounds": 1, "compile_cache": "hit", "gc_full_ms": 0.5,
+            "spans": (("solver.encode", 5, 6),)}
+    summed = _fold_rounds(first, info)
+    assert summed == {"encode_ms": 11.5, "dispatch_ms": 22.0, "steps": 33,
+                      "fill_pods": 44, "fill_rows": 55, "gc_full_ms": 0.75}
+    assert info == {**summed, "routing": "cpu", "bucket": "g16",
+                    "rounds": 2, "compile_cache": "hit",
+                    "spans": (("solver.split", 1, 2), ("solver.encode", 2, 3),
+                              ("solver.encode", 5, 6))}
+    # the native scan's info: no fill counts and no span record
+    first = {"encode_ms": 1.0, "scan_ms": 2.0, "shape": (1, 8, 0),
+             "steps": 0, "rounds": 1}
+    info = {"encode_ms": 3.0, "scan_ms": 4.0, "shape": (2, 8, 1),
+            "steps": 0, "rounds": 1}
+    assert _fold_rounds(first, info) == {"encode_ms": 4.0, "scan_ms": 6.0,
+                                         "steps": 0}
+    assert info == {"encode_ms": 4.0, "scan_ms": 6.0, "shape": (2, 8, 1),
+                    "steps": 0, "rounds": 2}
 
 
 # -- the benchmark's batches ---------------------------------------------------
@@ -378,11 +427,10 @@ def test_the_benchmarks_10k_batches_group_as_the_jax_package(config, groups):
     assert len(pods) == 10000
     want = partition(jsched.prepare_groups(to_jax(pods), ZONES))
     assert len(want) == groups
-    c0 = tpod.group_counts()
+    assert not any(hasattr(p, "_group") for p in pods)
     assert partition(prepare_groups(pods, ZONES)) == want
-    c1 = tpod.group_counts()
-    assert tuple(a - b for a, b in zip(c1, c0)) == (10000, 0, 0)
+    assert_fresh_stamps(pods)
+    stamps = [p._group for p in pods]
     # a controller re-solving the same pending pods reads their stamps
     assert partition(prepare_groups(pods, ZONES)) == want
-    c2 = tpod.group_counts()
-    assert tuple(a - b for a, b in zip(c2, c1)) == (0, 10000, 0)
+    assert all(p._group is st for p, st in zip(pods, stamps))
