@@ -9,6 +9,7 @@ multi-rank mesh on one CUDA card.
     python3 chip_smoke.py            # the smoke: every phase below
     python3 chip_smoke.py --slice    # paths A and B and phases 27-31 only
     python3 chip_smoke.py --ab-path-a DIR...   # path A in each checkout
+    python3 chip_smoke.py --pack-graph   # phase 32 only
 
 `--ab-path-a` compares checkouts on one card (give them in turns, as
 parent change change parent): for each DIR in order, a process in DIR
@@ -324,7 +325,32 @@ only, never jax or karpenter_tpu, and prints one line per phase:
              lane mesh's consolidation action over 33 candidates (the lane
              pad path) equal to the one-shot sweep's. 50000 of 50000 pods
              placed; every rank's row-max and fill launches equal and
-             above 0; rank 0's mesh walls and its checks' times.
+             above 0; rank 0's mesh walls and its checks' times;
+32. pack_graph — a single Solve's pack as a CUDA graph replay
+             (ops/pack_graph.py) at both benchmark cells' shapes
+             (portbench's inflate and boutique configurations, 10k-pod
+             burst requests): the shape's first sighting engages no graph;
+             then for three requests in a row, the eager pack and the
+             graph's run (capture at the first, replays after) of the same
+             fields give the same flat buffer, bit for bit, and the same
+             fill launch count; the median host time of the enqueue, eager
+             against replay, over alternating packs, and the capturing
+             run's beside an eager pack's; under torch.profiler, after a
+             pack that warms it up, three replays and three eager packs,
+             each in its own host window:
+             the same operations in each pack's window (those in no
+             window counted), and a replay's fill kernels (open_claim_qmax and
+             open_claim_apply, counted in the trace) 2 a step, equal to
+             the launches LAUNCHES was given back; its kernels and
+             memcpy32_post kernels (a graph's device-to-device copies)
+             beside the eager pack's kernels; through the cell's
+             SolverService, the first Solve of a shape eager, the second
+             capturing, the third a replay, and a Sync of a catalog of new
+             prices giving a solver with no graph whose second Solve
+             captures. After the fleet and chaos drills, one line a path
+             (`pack_graph_ways`): its single-problem packs on the card by
+             way (first sighting, key held, capture, replay) and the share
+             replayed.
 
 Paths A and B check that every node's used vector fits its decided type,
 that packed plus unschedulable equals the input pods, that the open-claim
@@ -527,12 +553,14 @@ def device_ms(fn, reps=25, inner=20, warm=5, reset=None):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    # a garbage collection in the middle of the capture, in this thread or
-    # another, may destroy a CUDA object, which invalidates the capture
+    # a garbage collection in the middle of the capture may destroy a CUDA
+    # object, which invalidates the capture; the capture is thread-local, so
+    # what other threads do to the card meanwhile (the solver's graphs are
+    # destroyed in whichever thread next packs) does not reach it
     gc.collect()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             for _ in range(inner):
                 fn()
     finally:
@@ -3346,6 +3374,209 @@ def profile_solve(torch, label, catalog, prov, pods, existing, TorchSolver):
 
 
 
+# -- the pack as a CUDA graph (phase 32) ---------------------------------------
+
+PACK_GRAPH_SEEDS = (3100002001, 3100002002, 3100002003)
+PACK_GRAPH_TIMED = 10
+PACK_GRAPH_WAYS = ("first", "held", "capture", "replay")
+FILL_KERNELS = ("open_claim_qmax_kernel", "open_claim_apply_kernel")
+
+
+def pack_graph_ways() -> "dict[str, int]":
+    """The process's single-problem packs on the card so far, by way."""
+    from karpenter_tpu_torch.ops.pack_graph import PACKS
+
+    return {w: int(PACKS.value(way=w)) for w in PACK_GRAPH_WAYS}
+
+
+def report_pack_graph_ways(marks) -> None:
+    """pack_graph_ways: each path's packs by way, from the counts taken
+    after each path in turn ((path, pack_graph_ways()) pairs, the first
+    the start)."""
+    for (_, before), (path, after) in zip(marks, marks[1:]):
+        ways = {w: after[w] - before[w] for w in PACK_GRAPH_WAYS}
+        packs = sum(ways.values())
+        if packs:
+            phase("pack_graph_ways", path=path, packs=packs, **ways,
+                  replay_share=f"{100.0 * ways['replay'] / packs:.1f}")
+
+
+def run_pack_graph(torch, LAUNCHES, KERNEL) -> None:
+    """pack_graph: the graph's run against the eager pack at the benchmark
+    cells' shapes (see the module docstring, phase 32)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.models.encode import encode_problem
+    from karpenter_tpu_torch.ops.pack_graph import PackGraphs
+    from karpenter_tpu_torch.ops.packer import n_eff_of
+    from karpenter_tpu_torch.solver import core, wire
+    from portbench.drive import System, build_catalog
+    from portbench.generator import Traffic, load_json
+    from portbench.trace import DeviceTrace, is_copy
+
+    def pack(solver, pods):
+        """(fields, plan, n_eff) of a Solve of `pods`, as _solve_once
+        builds them."""
+        enc = encode_problem(solver.catalog, solver.provisioners, pods, (),
+                             grid=solver.grid(),
+                             group_cache=solver._group_cache)
+        fields, plan = core.build_pack_inputs(enc, solver._dev_alloc_t,
+                                              solver._dev_tiebreak)
+        return fields, plan, n_eff_of(fields["group_count"])
+
+    def eager(fields, plan):
+        torch.cuda.synchronize()
+        before = LAUNCHES.get(KERNEL)
+        t0 = time.perf_counter()
+        flat = core.dispatch_pack_inputs(fields, plan, solver.device)
+        ms = (time.perf_counter() - t0) * 1000
+        return core.host_fetch(flat), LAUNCHES.get(KERNEL) - before, ms
+
+    def graphed(graphs, fields, plan, n_eff):
+        torch.cuda.synchronize()
+        before = LAUNCHES.get(KERNEL)
+        with graphs.lease(fields, plan.slots, n_eff) as graph:
+            check(graph is not None, "pack_graph: no graph engaged")
+            t0 = time.perf_counter()
+            flat = core.dispatch_pack_inputs(fields, plan, solver.device,
+                                             graph=graph)
+            ms = (time.perf_counter() - t0) * 1000
+            host = core.host_fetch(flat)
+            replayed = graph.replayed
+        return host, LAUNCHES.get(KERNEL) - before, ms, replayed
+
+    def traced(label, fn, n_eff):
+        """Four packs under the profiler, each in its own host window: the
+        first warms the profiler up (the first window of a fresh trace
+        missed two kernels and a copy on the card), the other three give
+        a pack's (kernels, fill kernels, memcpy32_post, copies), checked
+        alike in each window; and the device operations in no window."""
+        torch.cuda.synchronize()
+        trace, windows, launched = DeviceTrace(), [], []
+        trace.start()
+        for _ in range(4):
+            before = LAUNCHES.get(KERNEL)
+            t0 = time.time_ns()
+            fn()
+            windows.append((t0, time.time_ns()))
+            launched.append(LAUNCHES.get(KERNEL) - before)
+        torch.cuda.synchronize()
+        events = trace.stop()
+        per = []
+        for ws, we in windows:
+            inside = [n for n, s, e in events if ws <= s and e <= we]
+            per.append((sum(not is_copy(n) for n in inside),
+                        sum(any(k in n for k in FILL_KERNELS)
+                            for n in inside),
+                        sum("memcpy32_post" in n for n in inside),
+                        sum(is_copy(n) for n in inside)))
+        outside = len(events) - sum(p[0] + p[3] for p in per)
+        per, launched = per[1:], launched[1:]
+        check(len(set(per)) == 1,
+              f"pack_graph[{name}]: the {label} packs' traces differ: {per}")
+        check(per[0][1] == 2 * n_eff and launched == [2 * n_eff] * 3,
+              f"pack_graph[{name}]: the {label} packs ran {per[0][1]} fill "
+              f"kernels and counted {launched}, {n_eff} steps")
+        return (*per[0], outside)
+
+    traffic = load_json("portbench/traffic/burst.json")
+    for name in ("inflate", "boutique"):
+        config = load_json(f"portbench/configs/{name}.json")
+        system = System(config)                  # device=None: the card
+        solver = system.solver
+        graphs = PackGraphs(solver.device)
+        problems = [pack(solver, system.inputs(
+            Traffic(config, traffic, seed).request(0)))
+            for seed in PACK_GRAPH_SEEDS]
+        fields, plan, n_eff = problems[0]
+        with graphs.lease(fields, plan.slots, n_eff) as graph:
+            check(graph is None,
+                  f"pack_graph[{name}]: a first sighting engaged a graph")
+        first = None
+        for i, (fields, plan, n_eff) in enumerate(problems):
+            want, want_launches, eager_ms = eager(fields, plan)
+            got, launches, ms, replayed = graphed(graphs, fields, plan, n_eff)
+            check(replayed == (i > 0),
+                  f"pack_graph[{name}]: pack {i} replayed={replayed}")
+            check(np.array_equal(got, want),
+                  f"pack_graph[{name}]: pack {i}'s flat buffer differs from "
+                  f"the eager pack's at {np.flatnonzero(got != want)[:5]}")
+            check(launches == want_launches == 2 * n_eff,
+                  f"pack_graph[{name}]: pack {i} counted {launches} fill "
+                  f"launches, the eager pack {want_launches}, "
+                  f"{n_eff} steps")
+            if i == 0:
+                first = (ms, eager_ms)
+        eager_ms, replay_ms = [], []
+        for k in range(PACK_GRAPH_TIMED):
+            fields, plan, n_eff = problems[k % len(problems)]
+            for way in ((0, 1) if k % 2 else (1, 0)):
+                if way:
+                    got, _, ms, _ = graphed(graphs, fields, plan, n_eff)
+                    replay_ms.append(ms)
+                else:
+                    want, _, ms = eager(fields, plan)
+                    eager_ms.append(ms)
+            check(np.array_equal(got, want),
+                  f"pack_graph[{name}]: a timed replay differs")
+        fields, plan, n_eff = problems[0]
+        replay_trace = traced("replayed", lambda: graphed(
+            graphs, fields, plan, n_eff), n_eff)
+        eager_trace = traced("eager", lambda: eager(fields, plan), n_eff)
+
+        # through the service: a shape's first Solve packs eager, its
+        # second captures, its third replays; a Sync of new prices makes a
+        # new solver, whose second Solve captures again
+        svc, pods = system.service, system.inputs(
+            Traffic(config, traffic, PACK_GRAPH_SEEDS[0]).request(0))
+        counts = []
+        for _ in range(3):
+            svc.solve(system.key, list(pods))
+            counts.append((solver.last_solve_info["graph_captures"],
+                           solver.last_solve_info["graph_replays"]))
+        check(counts == [(0, 0), (1, 0), (0, 1)],
+              f"pack_graph[{name}]: the service's Solves counted "
+              f"(captures, replays) {counts}")
+        repriced = dict(config, catalog=dict(
+            config["catalog"],
+            spot_discount=config["catalog"]["spot_discount"] * 0.9))
+        catalog2 = build_catalog(repriced)
+        key2 = (wire.catalog_key(catalog2), system.key[1])
+        check(key2 != system.key, f"pack_graph[{name}]: new prices, same key")
+        svc.sync(key2, catalog2, system.provisioners)
+        solver2 = svc.checkout(key2)[0]
+        svc.checkin(key2)
+        check(solver2 is not solver and len(solver2._pack_graphs) == 0,
+              f"pack_graph[{name}]: the Sync's solver holds "
+              f"{len(solver2._pack_graphs)} graphs")
+        counts2 = []
+        for _ in range(2):
+            svc.solve(key2, list(pods))
+            info2 = solver2.last_solve_info
+            counts2.append((info2["graph_captures"], info2["graph_replays"]))
+        check(counts2 == [(0, 0), (1, 0)],
+              f"pack_graph[{name}]: the new catalog's Solves counted "
+              f"(captures, replays) {counts2}")
+        phase("pack_graph", cell=f"{name}.burst", steps=problems[0][2],
+              packs_bit_equal=len(problems) + PACK_GRAPH_TIMED,
+              launches_equal=True,
+              eager_enqueue_ms_median=f"{statistics.median(eager_ms):.3f}",
+              replay_enqueue_ms_median=f"{statistics.median(replay_ms):.3f}",
+              capture_run_ms=f"{first[0]:.3f}",
+              its_eager_ms=f"{first[1]:.3f}",
+              replay_kernels=replay_trace[0],
+              replay_fill_kernels=replay_trace[1],
+              replay_memcpy32_post=replay_trace[2],
+              replay_copies=replay_trace[3],
+              eager_kernels=eager_trace[0],
+              eager_copies=eager_trace[3],
+              replay_ops_outside_windows=replay_trace[4],
+              eager_ops_outside_windows=eager_trace[4],
+              resync_captures_again=True)
+        system = solver = solver2 = svc = None
+        gc.unfreeze()
+
+
 # -- the fleet and the chaos drills (phases 22-26) ------------------------------
 
 def _fleet_register(fe, catalog, prov, tids):
@@ -4891,6 +5122,10 @@ def main(argv=()) -> int:
 
         if quick:
             return run_slice(torch, LAUNCHES, TorchSolver)
+        if "--pack-graph" in argv:
+            run_pack_graph(torch, LAUNCHES, open_claim.KERNEL)
+            phase("pack_graph_only", ok=True)
+            return 0
         k1_rows, k1_err = run_k1(torch, quotient)
         oc_err = run_open_claim(torch, open_claim)
 
@@ -4904,42 +5139,53 @@ def main(argv=()) -> int:
 
         # the main path: each path's launch counts from 0 just before it
         path_launches = {}
+        # each path's packs by way, taken after it (pack_graph_ways)
+        ways = [("start", pack_graph_ways())]
         LAUNCHES.reset()
         info_a = run_path("pathA", catalog, prov, pods_a, (), LAUNCHES,
                           TorchSolver, OC, K1)
         path_launches["A"] = {k: LAUNCHES.get(k) for k in (OC, K1)}
+        ways.append(("pathA", pack_graph_ways()))
         LAUNCHES.reset()
         info_b = run_path("pathB", catalog, prov, pods_b, ex_b, LAUNCHES,
                           TorchSolver, OC, K1)
         path_launches["B"] = {k: LAUNCHES.get(k) for k in (OC, K1)}
+        ways.append(("pathB", pack_graph_ways()))
         info_c, path_launches["C"], problems_c = run_path_c(
             catalog, prov, LAUNCHES, TorchSolver, OC, K1)
         info_d, path_launches["D"], cluster_d, prov_d = run_path_d(
             catalog, LAUNCHES, consolidate, OC, K1)
+        config5_launches = run_config5(LAUNCHES, consolidate, OC)
+        ways.append(("paths_c_d_config5", pack_graph_ways()))
         for path, counts in path_launches.items():
             check(counts[OC] > 0, f"the open-claim kernel was never launched "
                                   f"on path {path}")
             check(counts[K1] == 0, f"path {path} launched the standalone K1")
-        config5_launches = run_config5(LAUNCHES, consolidate, OC)
         # the controllers: each reconcile's counts start at 0 just before it
         ctrl_row, ctrl_med = run_ctrl_provision(
             catalog, lambda: mixed_workload(10_000), LAUNCHES, OC, K1)
         path_launches["ctrl_provision"] = {OC: ctrl_row["launches"], K1: 0}
+        ways.append(("ctrl_provision", pack_graph_ways()))
         cons_launches, _ = run_ctrl_consolidate(torch, LAUNCHES, OC, K1,
                                                 consolidate)
         path_launches["ctrl_consolidate"] = {OC: cons_launches, K1: 0}
+        ways.append(("ctrl_consolidate", pack_graph_ways()))
         inc = run_ctrl_incremental(catalog, LAUNCHES, OC, K1)
         path_launches["ctrl_incremental"] = {OC: sum(inc["launches"]), K1: 0}
+        ways.append(("ctrl_incremental", pack_graph_ways()))
         op_row, _, op_inter_launches, op_machines = run_ctrl_operator(
             catalog, lambda: mixed_workload(10_000), LAUNCHES, OC, K1)
         path_launches["ctrl_operator"] = {OC: op_row["launches"], K1: 0}
+        ways.append(("ctrl_operator", pack_graph_ways()))
         storm_row, _ = run_ctrl_spot_storm(
             catalog, lambda: mixed_workload(10_000), op_machines, LAUNCHES,
             OC)
         path_launches["ctrl_spot_storm"] = {OC: storm_row["launches"], K1: 0}
+        ways.append(("ctrl_spot_storm", pack_graph_ways()))
         served_row = run_ctrl_served(
             catalog, lambda: mixed_workload(10_000), LAUNCHES, OC, K1)
         path_launches["ctrl_served"] = {OC: served_row["launches"], K1: 0}
+        ways.append(("ctrl_served", pack_graph_ways()))
         LAUNCHES.reset()
         svc_row = run_service(torch, catalog, prov, pods_a, LAUNCHES, OC,
                               K1, TorchSolver)
@@ -4947,19 +5193,24 @@ def main(argv=()) -> int:
             OC: svc_row["solves"] + svc_row["consolidate"]
             + svc_row["wire"]["solves"] + svc_row["wire"]["consolidate"],
             K1: 0}
+        ways.append(("service", pack_graph_ways()))
         run_cli_boot()
+        run_pack_graph(torch, LAUNCHES, OC)
+        ways.append(("pack_graph", pack_graph_ways()))
         # the fleet and the chaos drills: counts from 0 just before each
         LAUNCHES.reset()
         fleet_row = run_fleet(torch, catalog, prov, problems_c,
                               info_c["open_claim_launches"], LAUNCHES, OC,
                               K1, TorchSolver)
         path_launches["fleet"] = {OC: fleet_row["total"], K1: LAUNCHES.get(K1)}
+        ways.append(("fleet", pack_graph_ways()))
         fleet_want = TorchSolver(catalog, [prov]).solve_many(problems_c)
         LAUNCHES.reset()
         wire_row = run_fleet_wire(catalog, prov, problems_c, fleet_want,
                                   LAUNCHES, OC)
         path_launches["fleet_wire"] = {OC: wire_row["solves"],
                                        K1: LAUNCHES.get(K1)}
+        ways.append(("fleet_wire", pack_graph_ways()))
         replicas_row = run_fleet_replicas(LAUNCHES, OC)
         path_launches["fleet_replicas"] = {
             OC: replicas_row["launches"].get(OC, 0),
@@ -4967,9 +5218,12 @@ def main(argv=()) -> int:
         chaos_row = run_chaos(LAUNCHES, OC)
         path_launches["chaos"] = {OC: sum(chaos_row.values()),
                                   K1: LAUNCHES.get(K1)}
+        ways.append(("chaos", pack_graph_ways()))
         storm_launches = run_chaos_spot_storm(LAUNCHES, OC)
         path_launches["chaos_spot_storm"] = {OC: storm_launches,
                                              K1: LAUNCHES.get(K1)}
+        ways.append(("chaos_spot_storm", pack_graph_ways()))
+        report_pack_graph_ways(ways)
         wire_paths = (("fleet_wire", "fleet_replicas")
                       if wire_row["solves"] else ())
         for path in ("ctrl_provision", "ctrl_consolidate", "ctrl_incremental",

@@ -8,11 +8,14 @@ how the tests run the plain PyTorch path against the JAX package.
 LAUNCHES counts, per hand-written kernel, the launches its wrapper made.
 A wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that its main path went through the kernels: reset the counts
-before the run and read them after.
+before the run and read them after. A CUDA graph's capture makes no
+launch on the card: its wrappers' counts are held aside (`held`), and each
+replay of the graph adds them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -55,10 +58,25 @@ class LaunchCounts:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counts: "dict[str, int]" = {}
+        self._local = threading.local()
 
-    def add(self, kernel: str) -> None:
+    def add(self, kernel: str, n: int = 1) -> None:
+        held = getattr(self._local, "held", None)
+        if held is not None:
+            held[kernel] = held.get(kernel, 0) + n
+            return
         with self._lock:
-            self._counts[kernel] = self._counts.get(kernel, 0) + 1
+            self._counts[kernel] = self._counts.get(kernel, 0) + n
+
+    @contextlib.contextmanager
+    def held(self):
+        """Inside the block, the launches this thread's wrappers count go
+        to the yielded dict and not to the counts (a graph's capture)."""
+        self._local.held = held = {}
+        try:
+            yield held
+        finally:
+            self._local.held = None
 
     def get(self, kernel: str) -> int:
         with self._lock:

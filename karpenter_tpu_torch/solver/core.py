@@ -66,6 +66,7 @@ counterpart).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -81,6 +82,7 @@ from ..device import resolve_device
 from ..models.encode import EncodedProblem, OptionGrid, build_grid, encode_problem
 from ..models.instancetype import Catalog
 from ..models.pod import PodSpec
+from ..ops.pack_graph import PackGraphs
 from ..ops.packer import (INT_BIG, PackInputs, PackResult,
                           lane_inputs_from_numpy, n_eff_of, pack_flat,
                           pack_flat_lanes, pack_inputs_from_numpy,
@@ -145,7 +147,8 @@ _SPANS = {
     "solver.decode": (None, ("decode", "encode"), "decode_ms"),
 }
 # a round's counts that a two-round solve sums, with every *_ms time
-_ADDITIVE = ("steps", "fill_pods", "fill_rows")
+_ADDITIVE = ("steps", "fill_pods", "fill_rows", "graph_replays",
+             "graph_captures")
 
 
 def _fold_rounds(first: dict, info: dict) -> dict:
@@ -264,6 +267,8 @@ class TorchSolver:
         self.last_wave_flats: "list[Optional[np.ndarray]]" = []
         # flat int32 buffer of the last pack, as read back to the host
         self.last_flat: Optional[np.ndarray] = None
+        # a single solve's pack as a CUDA graph replay, one a pack shape
+        self._pack_graphs = PackGraphs(self.device)
         GC_PAUSES.install()
 
     def adopt_static(self, other: "TorchSolver",
@@ -642,7 +647,10 @@ class TorchSolver:
         route = "single"
         if self._router is not None and self._mesh_ctx is not None:
             route = self._router.route(plan)
-        with CudaEventSpan(self.device) as span:
+        # the graph's buffers stay held until the read below
+        lease = (self._pack_graphs.lease(fields, plan.slots, n_eff)
+                 if route == "single" else contextlib.nullcontext())
+        with CudaEventSpan(self.device) as span, lease as graph:
             if route == "sharded":
                 # enc.grid is the grid this encode actually used (the
                 # resident sharded catalog arrays are keyed on its identity)
@@ -650,7 +658,9 @@ class TorchSolver:
                     fields, plan.slots, enc.grid))
             else:
                 flat = dispatch_pack_inputs(fields, plan, self.device,
-                                            span=span)
+                                            span=span, graph=graph)
+            replays = int(graph is not None and graph.replayed)
+            captures = int(graph is not None) - replays
             t2 = time.perf_counter_ns()
             host = host_fetch(flat)
             t3 = time.perf_counter_ns()
@@ -707,6 +717,8 @@ class TorchSolver:
             "steps": n_eff,
             "fill_pods": fill_pods,
             "fill_rows": fill_rows,
+            "graph_replays": replays,
+            "graph_captures": captures,
             "rounds": 1,
             "compile_cache": compile_cache,
             "device_count": device_count,
@@ -739,7 +751,9 @@ class TorchSolver:
             "solver.dispatch.execute": {"compile_cache": compile_cache,
                                         "bucket": plan.label()},
             "solver.dispatch.enqueue": {"steps": n_eff, "fill_pods": fill_pods,
-                                        "fill_rows": fill_rows}},
+                                        "fill_rows": fill_rows,
+                                        "graph_replays": replays,
+                                        "graph_captures": captures}},
             pauses, anchor)
         tb_shape = enc.grid.tiebreak.shape
         GAP_LEDGER.annotate(
@@ -998,11 +1012,17 @@ def _tracked_upload(fields: dict, device) -> dict:
 
 
 def dispatch_pack_inputs(fields: dict, plan: "buckets.BucketPlan",
-                         device, span: "Optional[CudaEventSpan]" = None
-                         ) -> torch.Tensor:
+                         device, span: "Optional[CudaEventSpan]" = None,
+                         graph=None) -> torch.Tensor:
     """ENQUEUE the pack of already-padded fields on `device`, no device
     read. Returns the flat int32 result buffer on the device. `span`'s
-    events bracket the pack's kernels, after the upload."""
+    events bracket the pack's kernels, after the upload. With `graph`, the
+    held ops.pack_graph.PackGraph of these fields' key, the pack is its
+    run: one staged upload, then a replay (the key's first pack runs eager
+    and captures); its buffer is valid while the graph is held."""
+    if graph is not None:
+        return graph.run(fields, plan.slots,
+                         n_eff_of(fields["group_count"]), span)
     inputs = pack_inputs_from_numpy(_tracked_upload(fields, device), device)
     return _bracketed(span, lambda: pack_flat(
         inputs, plan.slots, n_eff_of(fields["group_count"])))

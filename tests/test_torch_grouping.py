@@ -373,7 +373,8 @@ def test_last_solve_info_and_the_groups_span_carry_the_counters():
         assert list(info) == [
             "encode_ms", "dispatch_ms", "transfer_ms", "decode_ms",
             "routing", "bucket", "plan", "slots", "res_width", "steps",
-            "fill_pods", "fill_rows", "rounds", "compile_cache",
+            "fill_pods", "fill_rows", "graph_replays", "graph_captures",
+            "rounds", "compile_cache",
             "device_count"] + (["decision"] if explain.enabled() else []) \
             + ["gc_full_ms", "spans"]
         (span,) = [sp for sp in TRACER.finished_spans()
