@@ -72,8 +72,9 @@ def build_provisioners(config: dict) -> list:
 
 class PodFactory:
     """Pods of the configuration's mix, built by the port's constructor:
-    one template a deployment, each pod a fresh PodSpec with its own name
-    and its own copy of the template's requirements."""
+    one template a deployment, each pod a fresh PodSpec with its own name,
+    its own copy of the template's requirements and the template's labels
+    (a mix entry's optional "labels", its pod template's metadata.labels)."""
 
     def __init__(self, config: dict):
         from karpenter_tpu_torch.apis import wellknown as wk
@@ -87,7 +88,8 @@ class PodFactory:
             make_pod(d["name"], cpu=d["cpu"], memory=d["memory"] or "0",
                      node_selector={wk.LABEL_ZONE: d["zone"]}
                      if d["zone"] else None,
-                     topology=spread if d["zone_spread"] else ())
+                     topology=spread if d["zone_spread"] else (),
+                     labels=tuple(sorted(d.get("labels", {}).items())))
             for d in config["mix"]]
 
     def pods(self, record: dict) -> list:
@@ -98,6 +100,7 @@ class PodFactory:
         for d, tok in zip(record["order"].tolist(), record["tokens"].tolist()):
             t = tpls[d]
             out.append(PodSpec(name=pod_name(names[d], tok),
+                               labels=t.labels,
                                requests=t.requests,
                                requirements=t.requirements.copy(),
                                topology=t.topology))

@@ -9,8 +9,7 @@ window, for the reference.
 A traffic file (portbench/traffic/<mix>.json) holds
 
 * "request": "solve", the one kind of request the harness sends: a batch of
-  pending pods of the configuration's deployments (its "mix", each with its
-  requests, an optional zone pin and an optional zone spread);
+  pending pods of the configuration's deployments;
 * "pods": the batch sizes, {"fixed": N} (every batch N pods) or
   {"sizes": [n1, n2, ...]} (any law, as its K sizes);
 * "block": K, the number of shapes; "pool_seed": the seed of their splits;
@@ -23,6 +22,21 @@ the deployments' shares) are the same for every seed, drawn from the file's
 order, so every seed offers the same work and the warm-up can run every
 shape the window will send. A request's pod order and names are the
 seed's.
+
+A configuration's "mix" lists its deployments, each an entry with
+
+* "name", and "share": its part of a batch's pods;
+* "cpu" and "memory": a pod's requests, as Kubernetes quantities ("100m",
+  "64Mi"); memory may be null;
+* "zone": a zone pin (a nodeSelector on the zone label), or null;
+* "zone_spread": a zone topology spread (maxSkew 1, DoNotSchedule) over the
+  deployment's own pods, or false;
+* optionally "labels": the pod template's metadata.labels, such as
+  {"app": "frontend"}.
+
+The program groups a batch's pods on their template (requests, zone pin,
+spread, labels), where the reference takes each entry as a Deployment of
+its own; `check_mix` refuses a mix on which the two would differ.
 """
 
 from __future__ import annotations
@@ -55,8 +69,50 @@ def mem_mib(q: "str | None") -> int:
     return -(-int(q) // 2**20)
 
 
+def check_mix(config: dict) -> None:
+    """Refuse a mix that the program and the reference would group apart.
+
+    Entries with one pod template (cpu, memory, zone, zone_spread, labels)
+    are one pod group in the program and separate Deployments in the
+    reference. That decides alike unless the entries carry a zone spread
+    (the program water-fills their union over the zones, the reference each
+    entry on its own), or another entry requests the same cpu and memory
+    under another template (first-fit-decreasing's name order would then
+    put it between them in the reference alone). Labels that differ, as a
+    Deployment's `app: <name>` does, keep entries apart in both."""
+    templates: "dict[tuple, list[str]]" = {}
+    for d in config["mix"]:
+        labels = d.get("labels", {})
+        if not isinstance(labels, dict) or not all(
+                isinstance(v, str) for kv in labels.items() for v in kv):
+            raise ValueError(f"mix entry {d['name']!r}: labels must map "
+                             f"strings to strings, not {labels!r}")
+        key = (cpu_millis(d["cpu"]), mem_mib(d["memory"]), d["zone"],
+               bool(d["zone_spread"]), tuple(sorted(labels.items())))
+        templates.setdefault(key, []).append(d["name"])
+    for key, names in templates.items():
+        if len(names) < 2:
+            continue
+        if key[3]:
+            raise ValueError(
+                f"mix entries {', '.join(names)} share one pod template and "
+                "a zone spread: the program would spread their union as one "
+                "pod group, the reference each on its own; give each entry "
+                "its own labels")
+        others = [n for k, ns in templates.items()
+                  if k != key and k[:2] == key[:2] for n in ns]
+        if others:
+            raise ValueError(
+                f"mix entries {', '.join(names)} share one pod template, and "
+                f"{', '.join(others)} request the same cpu and memory under "
+                "another: the reference's name order would interleave them "
+                "where the program packs the template as one pod group; give "
+                "each entry its own labels")
+
+
 class Traffic:
     def __init__(self, config: dict, traffic: dict, seed: int):
+        check_mix(config)
         if traffic["request"] != "solve":
             raise ValueError(f"unknown request kind {traffic['request']!r}")
         self.config = config

@@ -2,10 +2,14 @@
 
 Semantics (Karpenter's designs/bin-packing.md and instance.go selection):
 
-* identical pods form a group; a group with a zone topology spread
-  (maxSkew 1, DoNotSchedule) splits into one pinned subgroup a zone, its
-  pods water-filled over the zones (the lowest-populated zone first, ties
-  to the name-ordered first), counting the group's pods already resident;
+* each Deployment (a configuration's mix entry) is a group of its own,
+  however many others share its pod template; a group with a zone
+  topology spread (maxSkew 1, DoNotSchedule) splits into one pinned
+  subgroup a zone, its pods water-filled over the zones (the
+  lowest-populated zone first, ties to the name-ordered first), counting
+  only the group's own pods, resident ones included: what the constraint's
+  `labelSelector: app: <name>` selects when each Deployment labels its
+  pods `app: <name>`;
 * groups go in order of cpu, then memory, both descending, then the name of
   the group's first pod; the subgroups of one group keep zone order;
 * each pod goes to the first existing node that fits it, else to the first

@@ -6,7 +6,8 @@ import copy
 import numpy as np
 import pytest
 
-from portbench.generator import Traffic, cpu_millis, load_json, mem_mib
+from portbench.generator import (Traffic, check_mix, cpu_millis, load_json,
+                                 mem_mib)
 
 INFLATE = load_json("portbench/configs/inflate.json")
 
@@ -25,6 +26,10 @@ MIXED["mix"] = [
      "zone": "zone-1a", "zone_spread": False},
     {"name": "bare", "share": 0.10, "cpu": "2", "memory": None,
      "zone": None, "zone_spread": False}]
+# the same deployments, each pod carrying its template's labels
+LABELLED = copy.deepcopy(MIXED)
+for _d in LABELLED["mix"]:
+    _d["labels"] = {"app": _d["name"], "tier": "demo"}
 SIZES = {"request": "solve", "pods": {"sizes": [1, 3, 40, 250]},
          "block": 4, "pool_seed": 77}
 # the source's own scale-up, `kubectl scale deployment inflate --replicas 5`
@@ -98,6 +103,11 @@ def test_every_block_sends_the_pools_shapes_in_the_seeds_order(seed):
         [other.shape(j) for j in range(3 * k)]
 
 
+@pytest.mark.parametrize("config", [MIXED, LABELLED])
+def test_the_mixed_deployments_pass_the_mix_check(config):
+    check_mix(config)
+
+
 def test_a_size_list_must_fill_its_block_and_the_kind_must_be_known():
     with pytest.raises(ValueError):
         Traffic(MIXED, dict(SIZES, block=3), 0)
@@ -123,7 +133,8 @@ def test_quantities():
         [1024, 512, 8192, 2, 0]
 
 
-@pytest.mark.parametrize("config,mix", [(INFLATE, SCALE5), (MIXED, SIZES)])
+@pytest.mark.parametrize("config,mix", [(INFLATE, SCALE5), (MIXED, SIZES),
+                                        (LABELLED, SIZES)])
 def test_the_harness_builds_the_pods_make_pod_builds(config, mix):
     from karpenter_tpu_torch.apis import wellknown as wk
     from karpenter_tpu_torch.models.pod import (TopologySpreadConstraint,
@@ -142,7 +153,8 @@ def test_the_harness_builds_the_pods_make_pod_builds(config, mix):
                         memory=dep["memory"] or "0",
                         node_selector={wk.LABEL_ZONE: dep["zone"]}
                         if dep["zone"] else None,
-                        topology=spread if dep["zone_spread"] else ())
+                        topology=spread if dep["zone_spread"] else (),
+                        labels=tuple(sorted(dep.get("labels", {}).items())))
         assert p == want and p.group_key() == want.group_key()
 
 
